@@ -1,0 +1,144 @@
+"""The port's CLI (timg_tpu_torch.cli) against the JAX package's CLI.
+
+The same y4m clip goes through both CLIs under a scripted pty; the sixel
+streams must be byte-identical.  The port never imports jax, which a
+subprocess run shows, and it refuses what it does not run yet.
+"""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+os.environ["TIMG_TPU_TORCH_DEVICE"] = "cpu"
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+ARGV = ["--debug-no-frame-delay", "-g40x20", "-ps", "--dither=cube",
+        "-b", "black", "--loops=1"]
+
+
+@pytest.fixture
+def native():
+    from timg_tpu.native import runtime
+    if runtime.load() is None:
+        pytest.skip("native video helper unavailable")
+
+
+def _y4m(tmp_path, w=64, h=48, n=5):
+    p = tmp_path / "v.y4m"
+    rng = np.random.default_rng(9)
+    with open(p, "wb") as f:
+        f.write(("YUV4MPEG2 W%d H%d F25:1 Ip A1:1 C420jpeg\n"
+                 % (w, h)).encode())
+        for i in range(n):
+            y = np.full((h, w), 70 + 15 * i, np.uint8)
+            y[:, w // 3:] = 180 - 10 * i
+            y[10:30, 10:40] = rng.integers(16, 236, (20, 30),
+                                           dtype=np.uint8)
+            f.write(b"FRAME\n")
+            f.write(y.tobytes())
+            f.write(rng.integers(100, 160, (h // 2, w // 2),
+                                 dtype=np.uint8).tobytes())
+            f.write(np.full((h // 2, w // 2), 135, np.uint8).tobytes())
+    return str(p)
+
+
+def _run_pty(main, argv, out_path):
+    from tests.test_protocols import _with_scripted_pty
+
+    def inner(slave):
+        saved = os.dup(1)
+        try:
+            os.dup2(slave, 1)
+            rc = main(argv + ["-o", str(out_path)])
+        finally:
+            os.dup2(saved, 1)
+            os.close(saved)
+        assert rc == 0
+        return out_path.read_bytes()
+
+    return _with_scripted_pty(inner, {})
+
+
+@pytest.mark.parametrize("geometry", ["-g40x20", "-g33x17"])
+def test_cli_stream_matches_jax(native, tmp_path, geometry):
+    from timg_tpu.cli import main as jax_main
+    from timg_tpu_torch.cli import main as torch_main
+
+    clip = _y4m(tmp_path)
+    argv = [a if a != "-g40x20" else geometry for a in ARGV] + [clip]
+    want = _run_pty(jax_main, argv, tmp_path / "jax.out")
+    got = _run_pty(torch_main, argv, tmp_path / "torch.out")
+    assert got == want
+    assert got.count(b"\033Pq") == 5
+
+
+def test_cli_subprocess_never_imports_jax(native, tmp_path):
+    from tests.test_protocols import _with_scripted_pty
+
+    clip = _y4m(tmp_path)
+    out = tmp_path / "sub.out"
+    code = (
+        "import sys, pkgutil, importlib\n"
+        "import timg_tpu_torch\n"
+        "for m in pkgutil.walk_packages(timg_tpu_torch.__path__,\n"
+        "                               'timg_tpu_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "from timg_tpu_torch.cli import main\n"
+        f"rc = main({ARGV + [clip, '-o', str(out)]!r})\n"
+        "assert rc == 0, rc\n"
+        "print('jax loaded:', 'jax' in sys.modules, file=sys.stderr)\n")
+    env = dict(os.environ, TIMG_TPU_TORCH_DEVICE="cpu")
+
+    def run(slave):
+        return subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                              env=env, stdin=slave, stdout=slave,
+                              stderr=subprocess.PIPE, text=True,
+                              timeout=300)
+
+    proc = _with_scripted_pty(run, {})
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stderr.strip().splitlines()[-1] == "jax loaded: False"
+    assert out.read_bytes().count(b"\033Pq") == 5
+
+
+def test_cli_without_cuda_names_the_variable(monkeypatch, tmp_path, capsys):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device works")
+    from timg_tpu_torch.cli import main
+    monkeypatch.delenv("TIMG_TPU_TORCH_DEVICE")
+    rc = main(ARGV + [_y4m(tmp_path), "-o", str(tmp_path / "x.out")])
+    assert rc != 0
+    assert "TIMG_TPU_TORCH_DEVICE" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("flags,what", [
+    (["-ps", "--dither=libsixel"], "--dither=libsixel"),
+    (["-ps", "--dither=adaptive"], "--dither=adaptive"),
+    (["-ps"], "--dither=libsixel"),
+    (["-pq", "--dither=cube"], "-p quarter block"),
+    (["-ps", "--dither=cube", "--resample=sws"], "--resample=sws"),
+])
+def test_cli_refuses_what_is_not_ported(tmp_path, capsys, flags, what):
+    from timg_tpu_torch.cli import main
+    out = tmp_path / "x.out"
+    rc = main(["--debug-no-frame-delay", "-g40x20", *flags,
+               _y4m(tmp_path), "-o", str(out)])
+    assert rc != 0
+    err = capsys.readouterr().err
+    assert what in err and "not yet ported" in err
+    assert not out.exists() or out.read_bytes() == b""
+
+
+def test_cli_refuses_an_image(native, tmp_path, capsys):
+    from PIL import Image
+
+    from timg_tpu_torch.cli import main
+    png = tmp_path / "s.png"
+    Image.new("RGB", (32, 24), (10, 120, 200)).save(png)
+    rc = main(ARGV + [str(png), "-o", str(tmp_path / "x.out")])
+    assert rc != 0
+    assert "not yet ported" in capsys.readouterr().err

@@ -1,0 +1,153 @@
+"""The port's ops (timg_tpu_torch.ops) against the JAX package on the CPU.
+
+Every comparison is exact: the conversion is integer arithmetic, the
+resize sums exact bf16 products in f32, and the dither is the same f32
+sequence, so the bytes must agree.  Inputs are made with numpy from a
+seed and handed to both packages.  The CUDA kernels are held against
+these plain versions in tests/test_torch_kernels.py.
+"""
+
+import os
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+os.environ["TIMG_TPU_TORCH_DEVICE"] = "cpu"
+
+import jax.numpy as jnp  # noqa: E402
+
+from timg_tpu.ops import resize as jresize  # noqa: E402
+from timg_tpu.ops import yuv as jyuv  # noqa: E402
+from timg_tpu_torch.ops import resize as tresize  # noqa: E402
+from timg_tpu_torch.ops import sixel_kernel  # noqa: E402
+from timg_tpu_torch.ops import yuv as tyuv  # noqa: E402
+
+
+def _planes(seed, b, h, w):
+    rng = np.random.default_rng(seed)
+    ch, cw = (h + 1) // 2, (w + 1) // 2
+    return (rng.integers(0, 256, (b, h, w), dtype=np.uint8),
+            rng.integers(0, 256, (b, ch, cw), dtype=np.uint8),
+            rng.integers(0, 256, (b, ch, cw), dtype=np.uint8))
+
+
+def _words(seed, b, h, w):
+    rng = np.random.default_rng(seed)
+    img = rng.integers(0, 256, (b, h, w, 4), dtype=np.uint8)
+    img[..., 3] = 255
+    return img.view(np.int32).reshape(b, h, w)
+
+
+# ---- (a) YUV 4:2:0 -> RGBA words --------------------------------------
+
+@pytest.mark.parametrize("full_range", [False, True])
+@pytest.mark.parametrize("b,h,w", [(2, 7, 9), (1, 13, 6), (3, 24, 32)])
+def test_yuv420_matches_jax_and_numpy(full_range, b, h, w):
+    y, u, v = _planes(h * w + full_range, b, h, w)
+    got = tyuv.yuv420_to_rgba_words(torch.from_numpy(y), torch.from_numpy(u),
+                                    torch.from_numpy(v), full_range).numpy()
+    want_jax = np.asarray(jyuv.yuv420_to_rgba_words(y, u, v, full_range))
+    want_np = jyuv.yuv420_to_rgba_words_np(y, u, v, full_range)
+    assert got.dtype == np.int32
+    np.testing.assert_array_equal(got, want_jax)
+    np.testing.assert_array_equal(got, want_np)
+
+
+# ---- (b) resize -------------------------------------------------------
+
+@pytest.mark.parametrize("in_size,out_size,horizontal", [
+    (256, 160, True), (108, 72, False), (128, 256, True), (96, 192, False),
+    (1920, 1280, True), (1080, 720, False)])
+def test_band_taps_rebuild_band_matrix(in_size, out_size, horizontal):
+    """The compact tap tables hold exactly the bf16 band matrix."""
+    m = jresize._band_matrix_np(in_size, out_size, horizontal)
+    np.testing.assert_array_equal(
+        tresize._band_matrix_np(in_size, out_size, horizontal), m)
+    starts, taps = tresize.band_taps(m)
+    assert starts.dtype == torch.int32 and taps.dtype == torch.bfloat16
+    s = starts.numpy().astype(np.int64)
+    assert (s >= 0).all() and (s + taps.shape[1] <= in_size).all()
+    rebuilt = torch.zeros((in_size, out_size), dtype=torch.bfloat16)
+    for t in range(taps.shape[1]):
+        rebuilt[torch.from_numpy(s + t), torch.arange(out_size)] = taps[:, t]
+    want = torch.from_numpy(m).to(torch.bfloat16)
+    assert torch.equal(rebuilt.view(torch.int16), want.view(torch.int16))
+
+
+@pytest.mark.parametrize("h,w,oh,ow", [
+    (108, 256, 72, 160), (96, 128, 192, 256), (270, 384, 135, 240),
+    (48, 64, 48, 64)])
+def test_resize_video_words_matches_jax(h, w, oh, ow):
+    words = _words(h + w, 2, h, w)
+    got = tresize.resize_video_words(torch.from_numpy(words), oh, ow)
+    want = np.asarray(jresize.resize_video_words(jnp.asarray(words), oh, ow))
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_resize_covers_both_pass_orders():
+    orders = {tresize.vertical_first(h, w, oh, ow)
+              for h, w, oh, ow in [(108, 256, 72, 160), (96, 128, 192, 256),
+                                   (270, 384, 135, 240)]}
+    assert orders == {True, False}
+
+
+def test_padded_plane_dims_matches_jax():
+    for oh, ow in [(72, 160), (720, 1280), (726, 1281), (1, 1)]:
+        assert tresize.padded_plane_dims(oh, ow) == \
+            jresize.padded_plane_dims(oh, ow)
+
+
+# ---- (c) FS cube dither -----------------------------------------------
+
+def _jax_dither(words, h, w):
+    from timg_tpu.ops.sixel_pallas3 import fs_dither_cube_fused
+    return np.asarray(fs_dither_cube_fused(jnp.asarray(words), h, w,
+                                           interpret=True, out_u8=True))
+
+
+@pytest.mark.parametrize("b,h,w", [(2, 18, 25), (3, 130, 200), (1, 128, 128)])
+def test_fs_dither_cube_matches_pallas_interpret(b, h, w):
+    words = _words(b * 1000 + h, b, h, w)
+    want = _jax_dither(words, h, w)
+    plain = sixel_kernel.fs_dither_cube_plain(torch.from_numpy(words), h, w)
+    fused = sixel_kernel.fs_dither_cube_fused(torch.from_numpy(words), h, w)
+    assert plain.dtype == torch.uint8
+    np.testing.assert_array_equal(plain.numpy(), want)
+    np.testing.assert_array_equal(fused.numpy(), want)
+    wide = sixel_kernel.fs_dither_cube_plain(torch.from_numpy(words), h, w,
+                                             out_u8=False)
+    assert wide.dtype == torch.int32
+    np.testing.assert_array_equal(wide.numpy(), want.astype(np.int32))
+
+
+def test_fs_dither_cube_bg_pad_rows():
+    """722 content rows padded to 726 with an opaque bg word, as the
+    video window pads to the sixel band height (here at 22 -> 24)."""
+    b, th, w = 2, 22, 40
+    padded_h = th + 5 - (th + 5) % 6
+    bg_word = (10 | (200 << 8) | (30 << 16) | (255 << 24)) - (1 << 32)
+    words = np.full((b, padded_h, w), bg_word, np.int32)
+    words[:, :th] = _words(5, b, th, w)
+    want = _jax_dither(words, padded_h, w)
+    got = sixel_kernel.fs_dither_cube_plain(torch.from_numpy(words),
+                                            padded_h, w)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_fs_dither_plain_reads_padded_input():
+    """Words wider/taller than h x w (pitched input) dither only the
+    valid extent, like the Pallas kernel's pre-padded contract."""
+    words = _words(8, 2, 20, 30)
+    want = _jax_dither(words[:, :18, :25].copy(), 18, 25)
+    got = sixel_kernel.fs_dither_cube_fused(torch.from_numpy(words), 18, 25)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_fs_dither_plain_matches_numpy_mirror_rgba_input():
+    from timg_tpu.ops.sixel_np import fs_dither_cube_np
+    rng = np.random.default_rng(4)
+    img = rng.integers(0, 256, (2, 11, 17, 4), dtype=np.uint8)
+    got = sixel_kernel.fs_dither_cube_plain(torch.from_numpy(img), 11, 17,
+                                            out_u8=False)
+    np.testing.assert_array_equal(got.numpy(), fs_dither_cube_np(img))

@@ -1,0 +1,147 @@
+"""The port's video window (timg_tpu_torch.render.plane_cache) against the
+JAX package's device window on the CPU.
+
+The JAX side runs under TIMG_TPU_FORCE_DEVICE=1 (its Pallas dither in
+interpret mode) with the plane transport, so both sides hand the canvas
+raw index planes; planes and frame pixels must be identical.
+"""
+
+import os
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+os.environ["TIMG_TPU_TORCH_DEVICE"] = "cpu"
+
+from timg_tpu.options import DisplayOptions  # noqa: E402
+from timg_tpu.render import plane_cache as jcache  # noqa: E402
+from timg_tpu_torch.render import plane_cache as tcache  # noqa: E402
+
+
+def _window(seed, b, h, w):
+    rng = np.random.default_rng(seed)
+    ys = rng.integers(16, 236, (b, h, w), dtype=np.uint8)
+    us = rng.integers(16, 240, (b, (h + 1) // 2, (w + 1) // 2),
+                      dtype=np.uint8)
+    vs = rng.integers(16, 240, (b, (h + 1) // 2, (w + 1) // 2),
+                      dtype=np.uint8)
+    return ys, us, vs
+
+
+def _opts(mode="cube", bg=(0, 0, 0, 255)):
+    opts = DisplayOptions()
+    opts.sixel_batch_dither = mode
+    opts.bgcolor_getter = (lambda: bg) if bg is not None else None
+    return opts
+
+
+@pytest.mark.parametrize("h,w,th,tw,full_range,bg", [
+    (48, 64, 22, 40, False, (0, 0, 0, 255)),     # 22 -> 24: opaque bg pad
+    (48, 64, 22, 40, True, (200, 150, 255, 255)),  # bg word with bit 31
+    (36, 50, 24, 30, True, None),                # no pad rows
+    (24, 32, 30, 44, False, (0, 0, 0, 0)),       # upscale; transparent bg
+])
+def test_prime_sixel_video_matches_jax(monkeypatch, h, w, th, tw,
+                                       full_range, bg):
+    monkeypatch.setenv("TIMG_TPU_FORCE_DEVICE", "1")
+    monkeypatch.setenv("TIMG_TPU_SIXEL_TRANSPORT", "plane")
+    monkeypatch.delenv("TIMG_TPU_VIDEO_DEVICE_WINDOW", raising=False)
+    ys, us, vs = _window(h * w + th, 3, h, w)
+    want = jcache.prime_sixel_video_device(ys, us, vs, th, tw, full_range,
+                                           _opts(bg=bg), {})
+    got = tcache.prime_sixel_video_device(ys, us, vs, th, tw, full_range,
+                                          _opts(bg=bg), {})
+    assert len(got) == len(want) == 3
+    for g, j in zip(got, want):
+        assert isinstance(g, tcache.DeviceFrame)
+        assert g.shape == j.shape == (th, tw, 4)
+        gp, gpal, _ = tcache.SIXEL_PLANES.pop(g)
+        jp, jpal, _ = jcache.SIXEL_PLANES.pop(j)
+        assert gpal is None and jpal is None          # cube palette
+        assert gp.dtype == np.uint8
+        np.testing.assert_array_equal(gp, np.asarray(jp))
+        np.testing.assert_array_equal(np.asarray(g), np.asarray(j))
+
+
+def test_prime_pad_rows_carry_bg_word():
+    """The opaque-bg pad rows hold the wrapped int32 RGBA word."""
+    ys, us, vs = _window(2, 2, 20, 32)
+    state = {}
+    tcache.prime_sixel_video_device(ys, us, vs, 10, 32, True,
+                                    _opts(bg=(1, 2, 3, 255)), state)
+    words = state["video_stage"][1](*[torch.from_numpy(p)
+                                      for p in (ys, us, vs)])
+    assert words.shape == (2, 12, 32)
+    want = np.array([[1, 2, 3, 255]], np.uint8).view(np.int32)[0, 0]
+    assert (words[:, 10:].numpy() == want).all()
+
+
+def test_video_stage_reused_per_geometry():
+    ys, us, vs = _window(3, 2, 24, 32)
+    state = {}
+    tcache.prime_sixel_video_device(ys, us, vs, 12, 16, False, _opts(), state)
+    stage = state["video_stage"]
+    tcache.prime_sixel_video_device(ys, us, vs, 12, 16, False, _opts(), state)
+    assert state["video_stage"] is stage
+    tcache.prime_sixel_video_device(ys, us, vs, 18, 16, False, _opts(), state)
+    assert state["video_stage"] is not stage
+    assert isinstance(state["video_stage"][1], torch.nn.Module)
+
+
+@pytest.mark.parametrize("mode", ["libsixel", "adaptive", None])
+def test_other_dithers_not_yet_ported(mode):
+    ys, us, vs = _window(4, 1, 12, 16)
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        tcache.prime_sixel_video_device(ys, us, vs, 6, 8, False,
+                                        _opts(mode), {})
+
+
+def test_sws_resample_not_yet_ported():
+    ys, us, vs = _window(5, 1, 12, 16)
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        tcache.prime_sixel_video_device(ys, us, vs, 6, 8, False, _opts(),
+                                        {}, resample="sws")
+
+
+def test_device_frame_materializes_one_frame():
+    words = torch.arange(2 * 4 * 6, dtype=torch.int32).reshape(2, 4, 6)
+    f = tcache.DeviceFrame(words, 1, 3, 6)
+    arr = np.asarray(f)
+    assert arr.shape == f.shape == (3, 6, 4) and arr.dtype == np.uint8
+    np.testing.assert_array_equal(
+        arr, words[1, :3].numpy().view(np.uint8).reshape(3, 6, 4))
+
+
+def test_canvas_assembles_primed_planes():
+    """The canvas pops the primed plane and writes one sixel image, equal
+    to assembling that plane with the cube palette; a frame that was not
+    primed is refused."""
+    from timg_tpu.ops.sixel_np import cube_palette
+    from timg_tpu.options import SixelOptions
+    from timg_tpu.render.sequencer import SeqType
+    from timg_tpu.render.sixel_render import encode_sixel_stream
+    from timg_tpu_torch.render.sixel_render import SixelCanvas
+
+    class Sink:
+        def __init__(self):
+            self.data = []
+
+        def write_buffer(self, buf, seq_type, end_ms):
+            self.data.append(buf)
+
+    ys, us, vs = _window(6, 2, 24, 32)
+    opts = _opts()
+    opts.cell_x_px, opts.cell_y_px = 8, 16
+    frames = tcache.prime_sixel_video_device(ys, us, vs, 10, 16, False,
+                                             opts, {})
+    plane = tcache.SIXEL_PLANES.pop(frames[0])[0]
+    sink = Sink()
+    canvas = SixelCanvas(sink, SixelOptions(), opts, dither="cube")
+    canvas.send(0, 0, frames[0], SeqType.FRAME_IMMEDIATE)
+    out = b"".join(sink.data)
+    assert out.count(b"\033Pq") == 1
+    assert encode_sixel_stream(plane, cube_palette()) in out
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        canvas.send(0, 0, np.asarray(frames[0]).copy(),
+                    SeqType.FRAME_IMMEDIATE)
