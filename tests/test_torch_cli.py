@@ -1,8 +1,9 @@
 """The port's CLI (timg_tpu_torch.cli) against the JAX package's CLI.
 
 The same y4m clip goes through both CLIs under a scripted pty; the sixel
-streams must be byte-identical.  The port never imports jax, which a
-subprocess run shows, and it refuses what it does not run yet.
+streams must be byte-identical, in every --dither mode.  The port never
+imports jax, which a subprocess run shows, and it refuses what it does
+not run yet.
 """
 
 import os
@@ -63,13 +64,24 @@ def _run_pty(main, argv, out_path):
     return _with_scripted_pty(inner, {})
 
 
-@pytest.mark.parametrize("geometry", ["-g40x20", "-g33x17"])
-def test_cli_stream_matches_jax(native, tmp_path, geometry):
+@pytest.mark.parametrize("geometry,dither", [
+    pytest.param("-g40x20", "--dither=cube", id="-g40x20"),
+    pytest.param("-g33x17", "--dither=cube", id="-g33x17"),
+    pytest.param("-g40x20", "--dither=libsixel", id="-g40x20-libsixel"),
+    pytest.param("-g33x17", "--dither=libsixel", id="-g33x17-libsixel"),
+    pytest.param("-g40x20", "--dither=adaptive", id="-g40x20-adaptive"),
+    pytest.param("-g33x17", "--dither=adaptive", id="-g33x17-adaptive"),
+    pytest.param("-g40x20", "--dither=auto", id="-g40x20-auto"),
+    pytest.param("-g40x20", None, id="-g40x20-default")])
+def test_cli_stream_matches_jax(native, tmp_path, geometry, dither):
+    """Each mode, and no --dither flag at all (the CLI default,
+    libsixel)."""
     from timg_tpu.cli import main as jax_main
     from timg_tpu_torch.cli import main as torch_main
 
     clip = _y4m(tmp_path)
-    argv = [a if a != "-g40x20" else geometry for a in ARGV] + [clip]
+    argv = [geometry if a == "-g40x20" else dither if a == "--dither=cube"
+            else a for a in ARGV if a != "--dither=cube" or dither] + [clip]
     want = _run_pty(jax_main, argv, tmp_path / "jax.out")
     got = _run_pty(torch_main, argv, tmp_path / "torch.out")
     assert got == want
@@ -77,6 +89,13 @@ def test_cli_stream_matches_jax(native, tmp_path, geometry):
 
 
 def test_cli_subprocess_never_imports_jax(native, tmp_path):
+    """A cube run and a libsixel run (the CLI default)."""
+    for dither in ("--dither=cube", "--dither=libsixel"):
+        _run_without_jax(tmp_path, [dither if a == "--dither=cube" else a
+                                    for a in ARGV])
+
+
+def _run_without_jax(tmp_path, argv):
     from tests.test_protocols import _with_scripted_pty
 
     clip = _y4m(tmp_path)
@@ -88,7 +107,7 @@ def test_cli_subprocess_never_imports_jax(native, tmp_path):
         "                               'timg_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "from timg_tpu_torch.cli import main\n"
-        f"rc = main({ARGV + [clip, '-o', str(out)]!r})\n"
+        f"rc = main({argv + [clip, '-o', str(out)]!r})\n"
         "assert rc == 0, rc\n"
         "print('jax loaded:', 'jax' in sys.modules, file=sys.stderr)\n")
     env = dict(os.environ, TIMG_TPU_TORCH_DEVICE="cpu")
@@ -116,10 +135,8 @@ def test_cli_without_cuda_names_the_variable(monkeypatch, tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flags,what", [
-    (["-ps", "--dither=libsixel"], "--dither=libsixel"),
-    (["-ps", "--dither=adaptive"], "--dither=adaptive"),
-    (["-ps"], "--dither=libsixel"),
     (["-pq", "--dither=cube"], "-p quarter block"),
+    (["-pq"], "-p quarter block"),
     (["-ps", "--dither=cube", "--resample=sws"], "--resample=sws"),
 ])
 def test_cli_refuses_what_is_not_ported(tmp_path, capsys, flags, what):

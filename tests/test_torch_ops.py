@@ -85,6 +85,38 @@ def test_resize_video_words_matches_jax(h, w, oh, ow):
     np.testing.assert_array_equal(got.numpy(), want)
 
 
+@pytest.mark.parametrize("h,w,oh,ow", [
+    (1080, 1920, 480, 800),    # horizontal first; 10-tap bands
+    (1080, 1920, 720, 1280),   # vertical first
+    (1080, 1920, 200, 356),    # vertical first; 14-tap bands
+    (720, 1280, 300, 500),     # horizontal first
+    (700, 1000, 150, 333)])    # vertical first; odd widths
+def test_resize_full_frames_match_jax(h, w, oh, ow):
+    """Seeded uniform noise, whose 8+-tap sums cross the 32-input blocks
+    of the reference dot's order (ops/resize.py): every word equal."""
+    words = _words(0, 1, h, w) if (oh, ow) == (480, 800) else \
+        _words(h + oh, 1, h, w)
+    got = tresize.resize_video_words(torch.from_numpy(words), oh, ow)
+    want = np.asarray(jresize.resize_video_words(jnp.asarray(words), oh, ow))
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_resize_480x800_word_that_ascending_order_missed():
+    """Row 873's 10 taps into column 344 sum to 186.5 in the reference's
+    order and 186.50001525878906 in ascending order: a bf16 tie that
+    once made word (388, 344) 181 instead of 180 in channel 2."""
+    words = _words(0, 1, 1080, 1920)
+    got = tresize.resize_video_words(torch.from_numpy(words), 480, 800)
+    assert not tresize.vertical_first(1080, 1920, 480, 800)
+    word = np.array([int(got[0, 388, 344])], np.int32).view(np.uint8)
+    assert word.tolist() == [141, 123, 180, 255]
+    planes = torch.from_numpy(words[:, 873:874])
+    ch2 = ((planes >> 16) & 0xFF).to(torch.float32)
+    starts, taps = tresize.axis_taps(1920, 800, True)
+    row = tresize._apply_taps(ch2, 2, starts, taps)
+    assert float(row[0, 0, 344]) == 186.5
+
+
 def test_resize_covers_both_pass_orders():
     orders = {tresize.vertical_first(h, w, oh, ow)
               for h, w, oh, ow in [(108, 256, 72, 160), (96, 128, 192, 256),

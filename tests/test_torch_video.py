@@ -3,7 +3,8 @@ JAX package's device window on the CPU.
 
 The JAX side runs under TIMG_TPU_FORCE_DEVICE=1 (its Pallas dither in
 interpret mode) with the plane transport, so both sides hand the canvas
-raw index planes; planes and frame pixels must be identical.
+raw index planes; planes, palettes and frame pixels must be identical,
+in the cube, libsixel and adaptive modes.
 """
 
 import os
@@ -36,32 +37,51 @@ def _opts(mode="cube", bg=(0, 0, 0, 255)):
     return opts
 
 
+@pytest.fixture
+def jax_device_window(monkeypatch):
+    """The JAX package's device window on the CPU, plane transport."""
+    monkeypatch.setenv("TIMG_TPU_FORCE_DEVICE", "1")
+    monkeypatch.setenv("TIMG_TPU_SIXEL_TRANSPORT", "plane")
+    monkeypatch.delenv("TIMG_TPU_VIDEO_DEVICE_WINDOW", raising=False)
+
+
+def _pop_equal(got, want, th, tw):
+    """Pop each frame's primed entry from both caches and compare;
+    returns the port's (palette, quantizer) of the last frame."""
+    assert len(got) == len(want)
+    for g, j in zip(got, want):
+        assert isinstance(g, tcache.DeviceFrame)
+        assert g.shape == j.shape == (th, tw, 4)
+        gp, gpal, gq = tcache.SIXEL_PLANES.pop(g)
+        jp, jpal, jq = jcache.SIXEL_PLANES.pop(j)
+        assert gp.dtype == np.uint8
+        np.testing.assert_array_equal(gp, np.asarray(jp))
+        np.testing.assert_array_equal(np.asarray(g), np.asarray(j))
+        assert (gpal is None) == (jpal is None)
+        if gpal is not None:
+            np.testing.assert_array_equal(gpal, jpal)
+        assert (gq is None) == (jq is None)
+        if gq is not None:
+            for a, b in zip(gq, jq):
+                np.testing.assert_array_equal(a, np.asarray(b))
+    return gpal, gq
+
+
 @pytest.mark.parametrize("h,w,th,tw,full_range,bg", [
     (48, 64, 22, 40, False, (0, 0, 0, 255)),     # 22 -> 24: opaque bg pad
     (48, 64, 22, 40, True, (200, 150, 255, 255)),  # bg word with bit 31
     (36, 50, 24, 30, True, None),                # no pad rows
     (24, 32, 30, 44, False, (0, 0, 0, 0)),       # upscale; transparent bg
 ])
-def test_prime_sixel_video_matches_jax(monkeypatch, h, w, th, tw,
+def test_prime_sixel_video_matches_jax(jax_device_window, h, w, th, tw,
                                        full_range, bg):
-    monkeypatch.setenv("TIMG_TPU_FORCE_DEVICE", "1")
-    monkeypatch.setenv("TIMG_TPU_SIXEL_TRANSPORT", "plane")
-    monkeypatch.delenv("TIMG_TPU_VIDEO_DEVICE_WINDOW", raising=False)
     ys, us, vs = _window(h * w + th, 3, h, w)
     want = jcache.prime_sixel_video_device(ys, us, vs, th, tw, full_range,
                                            _opts(bg=bg), {})
     got = tcache.prime_sixel_video_device(ys, us, vs, th, tw, full_range,
                                           _opts(bg=bg), {})
-    assert len(got) == len(want) == 3
-    for g, j in zip(got, want):
-        assert isinstance(g, tcache.DeviceFrame)
-        assert g.shape == j.shape == (th, tw, 4)
-        gp, gpal, _ = tcache.SIXEL_PLANES.pop(g)
-        jp, jpal, _ = jcache.SIXEL_PLANES.pop(j)
-        assert gpal is None and jpal is None          # cube palette
-        assert gp.dtype == np.uint8
-        np.testing.assert_array_equal(gp, np.asarray(jp))
-        np.testing.assert_array_equal(np.asarray(g), np.asarray(j))
+    assert len(got) == 3
+    assert _pop_equal(got, want, th, tw) == (None, None)   # cube palette
 
 
 def test_prime_pad_rows_carry_bg_word():
@@ -89,8 +109,57 @@ def test_video_stage_reused_per_geometry():
     assert isinstance(state["video_stage"][1], torch.nn.Module)
 
 
-@pytest.mark.parametrize("mode", ["libsixel", "adaptive", None])
+def _mixed_window(seed, b, h, w):
+    """Noise in even frames (more than 256 sampled buckets: libsixel
+    diffuses) and smooth gradients in odd ones (fewer: palette only)."""
+    ys, us, vs = _window(seed, b, h, w)
+    yy, xx = np.mgrid[0:h, 0:w]
+    for i in range(1, b, 2):
+        ys[i] = 30 + (xx * 150 // w + yy * 40 // h + 9 * i) % 200
+        us[i], vs[i] = 128, 140
+    return ys, us, vs
+
+
+@pytest.mark.parametrize("h,w,th,tw,full_range,bg,mixed", [
+    (96, 128, 46, 64, False, (0, 0, 0, 255), True),  # 46 -> 48 bg pad
+    (96, 128, 46, 64, True, (200, 150, 255, 255), True),
+    (72, 100, 48, 60, True, None, False),            # no pad rows
+])
+def test_prime_libsixel_matches_jax(jax_device_window, h, w, th, tw,
+                                    full_range, bg, mixed):
+    """Per-frame palettes from the padded frames' histogram samples,
+    bucket tables and the table dither: planes and palettes equal."""
+    make = _mixed_window if mixed else _window
+    ys, us, vs = make(h * w + th, 4, h, w)
+    want = jcache.prime_sixel_video_device(
+        ys, us, vs, th, tw, full_range, _opts("libsixel", bg), {})
+    got = tcache.prime_sixel_video_device(
+        ys, us, vs, th, tw, full_range, _opts("libsixel", bg), {})
+    pal, quantizer = _pop_equal(got, want, th, tw)
+    assert pal is not None and quantizer is None
+
+
+def test_prime_adaptive_two_windows_matches_jax(jax_device_window):
+    """One tree per video, from the first window's first frame, kept in
+    the state for the second window: planes, palette and tree equal."""
+    jstate, tstate = {}, {}
+    for k, seed in enumerate((40, 41)):
+        ys, us, vs = _window(seed, 3, 48, 64)
+        if k:
+            ys = ys // 2 + 60            # other colors than the tree's
+        want = jcache.prime_sixel_video_device(
+            ys, us, vs, 22, 40, False, _opts("adaptive"), jstate)
+        got = tcache.prime_sixel_video_device(
+            ys, us, vs, 22, 40, False, _opts("adaptive"), tstate)
+        _, quantizer = _pop_equal(got, want, 22, 40)
+        assert quantizer is tstate["quantizer"]
+    assert all(np.array_equal(a, np.asarray(b))
+               for a, b in zip(tstate["quantizer"], jstate["quantizer"]))
+
+
+@pytest.mark.parametrize("mode", ["auto", None])
 def test_other_dithers_not_yet_ported(mode):
+    """Only resolved modes reach the window (the CLI resolves auto)."""
     ys, us, vs = _window(4, 1, 12, 16)
     with pytest.raises(NotImplementedError, match="not yet ported"):
         tcache.prime_sixel_video_device(ys, us, vs, 6, 8, False,

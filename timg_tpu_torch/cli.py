@@ -3,9 +3,11 @@
 Same flag surface, option resolution, pacing and exit codes as the JAX
 package's CLI; the sources and the canvas are the port's, and the
 jax-only parts (compile cache, forced-host pinning, JAX profiler hook,
-wedged-device exit) are gone.  This slice runs ``-p sixel --dither=cube``
-on opaque 4:2:0 video; anything else exits with a "not yet ported"
-message.  The device is ``cuda`` unless TIMG_TPU_TORCH_DEVICE=cpu.
+wedged-device exit) are gone.  The ported slices run ``-p sixel`` on
+opaque 4:2:0 video with every ``--dither`` mode (cube, libsixel,
+adaptive, and auto, which resolves to one of the latter two as the JAX
+CLI resolves it); anything else exits with a "not yet ported" message.
+The device is ``cuda`` unless TIMG_TPU_TORCH_DEVICE=cpu.
 """
 
 from __future__ import annotations
@@ -25,7 +27,8 @@ from timg_tpu.cli import (EXIT_CANT_OPEN_OUTPUT, EXIT_FILELIST_PROBLEM,
                           EXIT_PARAMETER_ERROR, EXIT_SUCCESS, _arm_signals,
                           _atof, _atoi, _default_thread_count,
                           _parse_pixelation, _pixelation_name,
-                          _print_verbose_stats, append_to_filelist)
+                          _print_verbose_stats, _resolve_auto_dither,
+                          append_to_filelist)
 from timg_tpu.colors import parse_color
 from timg_tpu.options import (NOT_INITIALIZED, ClearScreen, DisplayOptions,
                               Pixelation, PresentationOptions,
@@ -42,7 +45,7 @@ def _interrupt_handler(signo, frame):  # noqa: ARG001
 
 def _not_ported(what: str) -> int:
     print(f"timg-tpu-torch: {what} is not yet ported to timg_tpu_torch "
-          "(this build runs -p sixel --dither=cube on 4:2:0 video)",
+          "(this build runs -p sixel on 4:2:0 video)",
           file=sys.stderr)
     return EXIT_PARAMETER_ERROR
 
@@ -76,8 +79,6 @@ def main(argv: Optional[List[str]] = None) -> int:
         return EXIT_SUCCESS
     if args.devices:
         return _not_ported("--devices")
-    if args.dither != "cube":
-        return _not_ported(f"--dither={args.dither}")
     if args.resample != "auto":
         return _not_ported(f"--resample={args.resample}")
 
@@ -415,9 +416,14 @@ def main(argv: Optional[List[str]] = None) -> int:
 
 
 def _present_images(loaded, display, present, sequencer):
-    """Twin of timg_tpu/cli.py:_present_images (no --dither=auto: the
-    only dither this slice runs is cube)."""
+    """Twin of timg_tpu/cli.py:_present_images; ``--dither=auto``
+    resolves through the JAX CLI's own (jax-free) policy, so both CLIs
+    pick the same mode for the same session."""
     from timg_tpu.render.renderer import Renderer
+
+    if present.sixel_dither == "auto":
+        present.sixel_dither = _resolve_auto_dither(loaded)
+        display.sixel_batch_dither = present.sixel_dither
 
     canvas = _make_canvas(sequencer, display, present)
     renderer = Renderer.create(

@@ -15,8 +15,9 @@
 //     the words negative, so every shift is masked);
 //   * taps are bf16 (round-to-nearest-even from the f32 band matrix,
 //     folded edge duplicates summed first), values are bf16;
-//   * each product of two bf16 values is exact in f32, and the sum runs
-//     in ascending tap order in f32;
+//   * each product of two bf16 values is exact in f32, so only the
+//     order of the f32 sums matters: it is XLA:CPU's dot order (DotSum
+//     below; ops/resize.py says how it was found);
 //   * the first pass rounds its result to bf16 (__float2bfloat16_rn);
 //   * the second pass adds 0.5, clips to [0, 255], truncates, and packs
 //     r | g << 8 | b << 16 | 0xFF000000.
@@ -40,6 +41,27 @@ __device__ __forceinline__ float chan(int32_t word, int c) {
   return (float)((word >> (8 * c)) & 0xFF);
 }
 
+// The reference dot's sum order over the input index k: within each
+// block of 32 inputs, even and odd k go to two ascending sums; at a
+// block's end its (even + odd) is added to the running total.
+constexpr int kOrderBlock = 32;
+
+struct DotSum {
+  float total = 0.0f, even = 0.0f, odd = 0.0f;
+  // product p of input k, the t-th tap of this output (t = 0 first)
+  __device__ __forceinline__ void add(int k, int t, float p) {
+    if (t > 0 && k % kOrderBlock == 0) {
+      total = __fadd_rn(total, __fadd_rn(even, odd));
+      even = odd = 0.0f;
+    }
+    if (k & 1) odd = __fadd_rn(odd, p);
+    else even = __fadd_rn(even, p);
+  }
+  __device__ __forceinline__ float sum() const {
+    return __fadd_rn(total, __fadd_rn(even, odd));
+  }
+};
+
 // words [B, H, W] -> mid [B, 3, H1, W1] bf16, filtering one axis.
 // vertical: H1 = out_n, W1 = W;  horizontal: H1 = H, W1 = out_n.
 __global__ void resize_words_to_mid(const int32_t* __restrict__ words,
@@ -59,21 +81,19 @@ __global__ void resize_words_to_mid(const int32_t* __restrict__ words,
   const int o = vertical ? row : col;
   const int s = starts[o];
   const int32_t* src = words + (int64_t)b * H * W;
-  float acc[3];
+  DotSum acc[3];
   for (int t = 0; t < T; ++t) {
+    const int k = s + t;
     const float tap = __bfloat162float(taps[(int64_t)o * T + t]);
-    const int32_t word = vertical ? src[(int64_t)(s + t) * W + col]
-                                  : src[(int64_t)row * W + (s + t)];
+    const int32_t word = vertical ? src[(int64_t)k * W + col]
+                                  : src[(int64_t)row * W + k];
 #pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      const float p = __fmul_rn(tap, chan(word, c));
-      acc[c] = t == 0 ? p : __fadd_rn(acc[c], p);
-    }
+    for (int c = 0; c < 3; ++c) acc[c].add(k, t, __fmul_rn(tap, chan(word, c)));
   }
   const int64_t plane = (int64_t)H1 * W1;
   __nv_bfloat16* dst = mid + (int64_t)b * 3 * plane + (int64_t)row * W1 + col;
 #pragma unroll
-  for (int c = 0; c < 3; ++c) dst[c * plane] = __float2bfloat16_rn(acc[c]);
+  for (int c = 0; c < 3; ++c) dst[c * plane] = __float2bfloat16_rn(acc[c].sum());
 }
 
 // mid [B, 3, H1, W1] bf16 -> out [B, OH, OW] words, filtering the other
@@ -100,16 +120,15 @@ __global__ void resize_mid_to_words(const __nv_bfloat16* __restrict__ mid,
 #pragma unroll
   for (int c = 0; c < 3; ++c) {
     const __nv_bfloat16* p = src + c * plane;
-    float acc = 0.0f;
+    DotSum acc;
     for (int t = 0; t < T; ++t) {
+      const int k = s + t;
       const float tap = __bfloat162float(taps[(int64_t)o * T + t]);
-      const float v = __bfloat162float(
-          vertical ? p[(int64_t)(s + t) * W1 + col]
-                   : p[(int64_t)row * W1 + (s + t)]);
-      const float prod = __fmul_rn(tap, v);
-      acc = t == 0 ? prod : __fadd_rn(acc, prod);
+      const float v = __bfloat162float(vertical ? p[(int64_t)k * W1 + col]
+                                                : p[(int64_t)row * W1 + k]);
+      acc.add(k, t, __fmul_rn(tap, v));
     }
-    const float v = fminf(fmaxf(__fadd_rn(acc, 0.5f), 0.0f), 255.0f);
+    const float v = fminf(fmaxf(__fadd_rn(acc.sum(), 0.5f), 0.0f), 255.0f);
     packed |= ((int32_t)v) << (8 * c);
   }
   out[i] = packed;

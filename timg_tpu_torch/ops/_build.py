@@ -1,8 +1,9 @@
 """Build the CUDA sources under timg_tpu_torch/csrc/ at first use.
 
-All ``csrc/*.cu`` files compile with ``nvcc`` for Hopper (``sm_90a``)
-into one shared library with a plain C interface, loaded with ctypes.
-No PyTorch header is included, so the build takes seconds rather than
+Each ``csrc/*.cu`` file compiles with its own ``nvcc`` for Hopper
+(``sm_90a``), all started together, and the objects link into one
+shared library with a plain C interface, loaded with ctypes.  No
+PyTorch header is included, so the build takes seconds rather than
 minutes.  The library lands in ``csrc/build/`` (git-ignored) and is
 rebuilt whenever a source is newer than it.  Nothing here runs at
 import time: a machine without ``nvcc`` can import every module.
@@ -24,7 +25,7 @@ LIB_PATH = os.path.join(BUILD_DIR, "libtimg_torch_kernels.so")
 LOG_PATH = os.path.join(BUILD_DIR, "nvcc.log")
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lib = None
 _lock = threading.Lock()
@@ -57,21 +58,42 @@ def _stale() -> bool:
 def build() -> str:
     """Compile the library if it is missing or stale; return its path.
 
-    Compiles to a temporary name and renames, so a concurrent loader
-    never sees a half-written library.  ptxas' register and shared
-    memory report goes to ``csrc/build/nvcc.log``."""
+    One ``nvcc -c`` per source, run in parallel, then one link.  Links
+    to a temporary name and renames, so a concurrent loader never sees a
+    half-written library.  ptxas' register and shared memory report
+    goes to ``csrc/build/nvcc.log``."""
     if not _stale():
         return LIB_PATH
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{LIB_PATH}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *[s for s in _sources() if s.endswith(".cu")]]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    nvcc = _nvcc()
+    tag = f"{os.getpid()}.tmp"
+    objs, procs = [], []
+    for src in (s for s in _sources() if s.endswith(".cu")):
+        obj = os.path.join(BUILD_DIR, os.path.basename(src)[:-3] + f".{tag}.o")
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
+        objs.append(obj)
+        procs.append((cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    log, failed = [], []
+    for cmd, proc in procs:
+        out, err = proc.communicate()
+        log.append(" ".join(cmd) + "\n" + out + err)
+        if proc.returncode != 0:
+            failed.append(f"{cmd[-1]} ({proc.returncode}):\n{err[-4000:]}")
+    tmp = f"{LIB_PATH}.{tag}"
+    if not failed:
+        cmd = [nvcc, "-shared", "-o", tmp, *objs]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        log.append(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            failed.append(f"link ({proc.returncode}):\n{proc.stderr[-4000:]}")
+    for obj in objs:
+        if os.path.exists(obj):
+            os.remove(obj)
     with open(LOG_PATH, "w") as f:
-        f.write(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stderr[-4000:]}")
+        f.write("\n".join(log))
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
     os.replace(tmp, LIB_PATH)
     return LIB_PATH
 

@@ -6,12 +6,21 @@ stb-exact packed taps (``_band_matrix_np``) and runs two bf16 einsums
 with f32 accumulation.  The port carries that state across as compact
 tap tables: ``band_taps`` turns each band matrix into ``starts [out]``
 and ``taps [out, T]`` (bf16), so output o reads inputs
-``starts[o] .. starts[o] + T - 1``.  Both the CUDA kernel
-(ops/resize_kernel.py) and the plain version below sum the T products
-in ascending input order in f32; each product of two bf16 values is
-exact in f32, so only the order of the sums could differ from the
-reference's dot, and at the shapes the tests and the smoke run pin
-(including 1080p -> 720x1280) it gives the same bytes.
+``starts[o] .. starts[o] + T - 1``.
+
+Each product of two bf16 values is exact in f32, so only the order of
+the f32 sums can make the bytes differ from the reference.  Both the
+CUDA kernel (ops/resize_kernel.py) and the plain version below sum in
+the order XLA:CPU's bf16 x bf16 -> f32 dot was measured to use, by
+testing candidate orders against every f32 output of the dot: inputs
+are cut into blocks of 32 by absolute index k; inside a block, even
+and odd k go to two separate ascending sums; each block's
+``even + odd`` is added to a running total.  Ascending order puts 1
+word of 1080p -> 480x800 off by one.  The last row-and-column tile of
+the dot's GEMM uses yet another order, so a sum there can still differ
+in f32 (53 of 2,592,000 sums of the 1920 -> 800 pass at 3,240 rows);
+that tile's rows move with the batch size, and at the shapes the tests
+pin no such difference reaches the bytes.
 """
 
 from __future__ import annotations
@@ -24,6 +33,8 @@ import torch
 from timg_tpu.ops.resize_np import (STB_DOWNSAMPLE_FILTER,
                                     STB_UPSAMPLE_FILTER, packed_taps,
                                     plan_passes)
+
+ORDER_BLOCK = 32   # inputs per block of the reference dot's sum order
 
 
 @functools.lru_cache(maxsize=64)
@@ -88,16 +99,27 @@ def padded_plane_dims(out_h: int, out_w: int) -> tuple:
 def _apply_taps(x: torch.Tensor, dim: int, starts: torch.Tensor,
                 taps: torch.Tensor) -> torch.Tensor:
     """Tap-major banded filter along ``dim`` of f32 ``x`` (values exact
-    in bf16): gather, multiply, add in ascending tap order."""
+    in bf16), summed in the reference dot's order (module docstring):
+    per 32-input block, even and odd inputs in two ascending sums, the
+    block's ``even + odd`` added to the running total."""
     tapf = taps.to(device=x.device, dtype=torch.float32)
     starts = starts.to(device=x.device, dtype=torch.int64)
     shape = [1] * x.dim()
     shape[dim] = -1
-    acc = None
+    total = even = odd = torch.zeros((), dtype=torch.float32,
+                                     device=x.device)
     for t in range(tapf.shape[1]):
-        term = x.index_select(dim, starts + t) * tapf[:, t].reshape(shape)
-        acc = term if acc is None else acc + term
-    return acc
+        k = starts + t
+        if t:
+            flush = (k % ORDER_BLOCK == 0).reshape(shape)
+            total = torch.where(flush, total + (even + odd), total)
+            even = torch.where(flush, 0.0, even)
+            odd = torch.where(flush, 0.0, odd)
+        term = x.index_select(dim, k) * tapf[:, t].reshape(shape)
+        is_odd = (k % 2 == 1).reshape(shape)
+        even = torch.where(is_odd, even, even + term)
+        odd = torch.where(is_odd, odd + term, odd)
+    return total + (even + odd)
 
 
 def resize_video_words_plain(words: torch.Tensor, out_h: int, out_w: int,

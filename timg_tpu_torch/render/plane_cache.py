@@ -1,12 +1,19 @@
-"""Device-resident sixel video window (counterpart of the cube branch of
+"""Device-resident sixel video window (counterpart of
 timg_tpu/render/plane_cache.py:prime_sixel_video_device).
 
 One window of 4:2:0 frames goes host->device once as Y/U/V planes
-(1.5 B/px); conversion, resize, sixel-band padding and the FS cube
-dither run on the device; only the uint8 index planes come back.  The
-frames handed to the sink are DeviceFrame placeholders: the canvas needs
-only their shape and the primed plane, so the RGBA words stay on the
-device unless someone converts a frame to an array.
+(1.5 B/px); conversion, resize and sixel-band padding run on the device,
+then the dither of the session's mode:
+- ``cube``: the FS cube kernel;
+- ``libsixel``: per-frame palettes from the histogram samples (fetched
+  from the device, palettes built on the host), bucket tables and the
+  integer table kernel on the device;
+- ``adaptive``: one median-cut tree per video, built on the host from the
+  window's first frame, and the tree kernel.
+Only the uint8 index planes come back.  The frames handed to the sink
+are DeviceFrame placeholders: the canvas needs only their shape and the
+primed plane, so the RGBA words stay on the device unless someone
+converts a frame to an array.
 """
 
 from __future__ import annotations
@@ -15,10 +22,16 @@ import numpy as np
 import torch
 from torch import nn
 
+from timg_tpu.ops import libsixel_quant as lsq
+from timg_tpu.ops.sixel_np import median_cut_tree
 from timg_tpu.render.plane_cache import PlaneCache
 from timg_tpu_torch.ops import backend
+from timg_tpu_torch.ops.libsixel_kernel import (build_bucket_tables,
+                                                fs_dither_table_fused,
+                                                pad_palettes, palette_words)
 from timg_tpu_torch.ops.resize import axis_taps, resize_video_words
-from timg_tpu_torch.ops.sixel_kernel import fs_dither_cube_fused
+from timg_tpu_torch.ops.sixel_kernel import (fs_dither_cube_fused,
+                                             fs_dither_tree_fused)
 from timg_tpu_torch.ops.sixel_runs import fetch_planes_or_runs
 from timg_tpu_torch.ops.yuv import yuv420_to_rgba_words
 
@@ -94,14 +107,16 @@ class VideoStage(nn.Module):
 def prime_sixel_video_device(ys, us, vs, th: int, tw: int,
                              full_range: bool, options, state: dict,
                              resample: str = "lean"):
-    """Fused device window for opaque 4:2:0 video in sixel cube sessions.
+    """Fused device window for opaque 4:2:0 video in sixel sessions
+    (``cube``, ``libsixel`` or ``adaptive``).
 
     ys/us/vs: [B, H, W] / [B, ceil(H/2), ceil(W/2)] uint8 numpy planes.
-    Returns B DeviceFrame placeholders and parks each frame's index
-    plane in SIXEL_PLANES for the canvas.  ``state`` (owned by the
-    source) keeps the VideoStage of the current geometry."""
+    Returns B DeviceFrame placeholders and parks each frame's
+    (index plane, palette, quantizer) in SIXEL_PLANES for the canvas.
+    ``state`` (owned by the source) keeps the VideoStage of the current
+    geometry and, for ``adaptive``, the tree of the video."""
     mode = getattr(options, "sixel_batch_dither", None)
-    if mode != "cube":
+    if mode not in ("cube", "libsixel", "adaptive"):
         raise not_ported(f"--dither={mode}")
     if resample != "lean":
         raise not_ported("--resample=sws-bitexact")
@@ -124,10 +139,52 @@ def prime_sixel_video_device(ys, us, vs, th: int, tw: int,
         state["video_stage"] = stage
     planes = [torch.from_numpy(np.ascontiguousarray(p)).to(dev)
               for p in (ys, us, vs)]
-    words = stage[1](*planes)
-    indices = fs_dither_cube_fused(words, padded_h, tw, out_u8=True)
+    words = stage[1](*planes)                    # [B, padded_h, tw]
+    if mode == "cube":
+        indices = fs_dither_cube_fused(words, padded_h, tw, out_u8=True)
+        palettes, quantizer = [None] * b, None
+    elif mode == "libsixel":
+        indices, palettes = _dither_libsixel(words, padded_h, tw)
+        quantizer = None
+    else:
+        quantizer = state.get("quantizer")
+        if quantizer is None:
+            # one tree per video, from the full first frame
+            first = words[0].cpu().numpy()
+            quantizer = median_cut_tree(
+                first.view(np.uint8).reshape(padded_h, tw, 4)[..., :3])
+            state["quantizer"] = quantizer
+        palette, levels, leaves = quantizer
+        indices = fs_dither_tree_fused(words, torch.from_numpy(levels),
+                                       torch.from_numpy(leaves), padded_h,
+                                       tw, out_u8=True)
+        palettes = [palette] * b
     entries = fetch_planes_or_runs(indices, b, padded_h, tw)
     frames = [DeviceFrame(words, i, th, tw) for i in range(b)]
     for i, frame in enumerate(frames):
-        SIXEL_PLANES.put(frame, (entries[i], None, None))
+        SIXEL_PLANES.put(frame, (entries[i], palettes[i], quantizer))
     return frames
+
+
+def _dither_libsixel(words: torch.Tensor, padded_h: int, tw: int):
+    """libsixel mode on a [B, padded_h, tw] window: quant.c's histogram
+    samples of each padded frame (every ``sample_stride``-th pixel)
+    cross to the host, which builds each frame's palette and diffuse
+    flag (jax-free libsixel_quant); the bucket tables and the dither
+    run on the device.  Returns (indices, per-frame palettes)."""
+    b = words.shape[0]
+    stride = lsq.sample_stride(padded_h * tw)
+    samples = words.reshape(b, -1)[:, ::stride].cpu().numpy()
+    rgb = np.stack([samples & 0xFF, (samples >> 8) & 0xFF,
+                    (samples >> 16) & 0xFF], axis=-1).astype(np.uint8)
+    pals, diffs = [], []
+    for i in range(b):
+        pal, diffuse = lsq.make_palette_from_samples(rgb[i])
+        pals.append(pal)
+        diffs.append(bool(diffuse))
+    pals_dev = torch.from_numpy(pad_palettes(pals)).to(words.device)
+    diffs_dev = torch.tensor(diffs, dtype=torch.int32, device=words.device)
+    tables = build_bucket_tables(pals_dev)
+    indices = fs_dither_table_fused(words, tables, palette_words(pals_dev),
+                                    diffs_dev, padded_h, tw, out_u8=True)
+    return indices, pals
