@@ -13,11 +13,11 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from timg_tpu.ops import libsixel_quant as lsq  # noqa: E402
-from timg_tpu.ops.sixel_np import median_cut_tree  # noqa: E402
 from timg_tpu_torch.ops import libsixel_kernel as tlib  # noqa: E402
+from timg_tpu_torch.ops import libsixel_quant as lsq  # noqa: E402
 from timg_tpu_torch.ops import resize as tresize  # noqa: E402
 from timg_tpu_torch.ops import sixel_kernel  # noqa: E402
+from timg_tpu_torch.ops.sixel_np import median_cut_tree  # noqa: E402
 
 
 @pytest.fixture
@@ -67,8 +67,15 @@ def test_cpu_tensors_take_the_plain_versions():
     assert torch.equal(
         tlib.fs_dither_table_fused(words, tables, palw, diffs, 30, 40),
         tlib.fs_dither_table_plain(words, tables, palw, diffs, 30, 40))
+    rgb = words.view(torch.uint8).reshape(2, 30, 40, 4)
+    assert torch.equal(sixel_kernel.fs_dither_cube_rgb(rgb, 30, 40),
+                       sixel_kernel.fs_dither_cube_rgb_plain(rgb, 30, 40))
+    assert torch.equal(
+        sixel_kernel.fs_dither_tree_rgb(rgb, levels, leaves, 30, 40),
+        sixel_kernel.fs_dither_tree_rgb_plain(rgb, levels, leaves, 30, 40))
     assert (tlib.BUCKET_LAUNCHES, tlib.TABLE_LAUNCHES,
-            sixel_kernel.TREE_LAUNCHES) == (0, 0, 0)
+            sixel_kernel.TREE_LAUNCHES, sixel_kernel.RGB_LAUNCHES,
+            sixel_kernel.TREE_RGB_LAUNCHES) == (0, 0, 0, 0, 0)
 
 
 def test_resize_identity_returns_input():
@@ -86,6 +93,11 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     levels, leaves = _tree(words)
     with pytest.raises(ValueError):
         sixel_kernel.fs_dither_tree_cuda(words, levels, leaves, 12, 16)
+    rgb = words.view(torch.uint8).reshape(1, 12, 16, 4)
+    with pytest.raises(ValueError):
+        sixel_kernel.fs_dither_cube_rgb_cuda(rgb, 12, 16)
+    with pytest.raises(ValueError):
+        sixel_kernel.fs_dither_tree_rgb_cuda(rgb, levels, leaves, 12, 16)
     pals, palw, diffs = _libsixel_inputs(words)
     with pytest.raises(ValueError):
         tlib.build_bucket_tables_cuda(pals)
@@ -98,6 +110,10 @@ def test_dither_rejects_bad_input():
     with pytest.raises(ValueError):
         sixel_kernel.fs_dither_cube_plain(torch.zeros((1, 4, 4), dtype=
                                                       torch.int64), 4, 4)
+    for bad in (torch.zeros((1, 4, 4, 2), dtype=torch.uint8),
+                torch.zeros((1, 4, 4, 3), dtype=torch.int32)):
+        with pytest.raises(ValueError):
+            sixel_kernel.fs_dither_cube_rgb_plain(bad, 4, 4)
 
 
 @pytest.mark.cuda
@@ -221,3 +237,70 @@ def test_tree_kernel_matches_plain(cuda_device, b, h, w):
     wide = sixel_kernel.fs_dither_tree_cuda(words.to(cuda_device), levels,
                                             leaves, h, w, out_u8=False)
     assert torch.equal(wide.cpu(), want.to(torch.int32))
+
+
+def _bytes(seed, b, h, w, c):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.integers(0, 256, (b, h, w, c),
+                                         dtype=np.uint8))
+
+
+# K9 (cube) and the tree quantizer on [B, H, W, C] bytes: the main
+# path's 720x1280 and bg-padded 726 rows, 2 and 4 rows a thread (1025,
+# 2049 rows), and C = 4 input of which only 3 channels are read.
+RGB_SHAPES = [(2, 720, 1280, 4), (1, 726, 1280, 3), (2, 1025, 30, 3),
+              (1, 2049, 12, 4), (3, 18, 25, 4)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,w,c", RGB_SHAPES)
+def test_cube_rgb_kernel_matches_plain(cuda_device, b, h, w, c):
+    frames = _bytes(h * c, b, h, w, c)
+    want = sixel_kernel.fs_dither_cube_rgb_plain(frames, h, w)
+    got = sixel_kernel.fs_dither_cube_rgb_cuda(frames.to(cuda_device), h, w)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.int32
+    assert torch.equal(got.cpu(), want)
+    small = sixel_kernel.fs_dither_cube_rgb_cuda(frames.to(cuda_device), h,
+                                                 w, out_u8=True)
+    assert torch.equal(small.cpu(), want.to(torch.uint8))
+    if c == 4:   # the fourth channel is never read
+        other = frames.clone()
+        other[..., 3] = 255 - other[..., 3]
+        again = sixel_kernel.fs_dither_cube_rgb_cuda(other.to(cuda_device),
+                                                     h, w)
+        assert torch.equal(again.cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,w,c", RGB_SHAPES)
+def test_tree_rgb_kernel_matches_plain(cuda_device, b, h, w, c):
+    frames = _bytes(h * c + 1, b, h, w, c)
+    _, levels, leaves = median_cut_tree(frames[0, ..., :3].numpy())
+    levels, leaves = torch.from_numpy(levels), torch.from_numpy(leaves)
+    want = sixel_kernel.fs_dither_tree_rgb_plain(frames, levels, leaves, h, w)
+    got = sixel_kernel.fs_dither_tree_rgb_cuda(frames.to(cuda_device),
+                                               levels, leaves, h, w)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+    small = sixel_kernel.fs_dither_tree_rgb_cuda(frames.to(cuda_device),
+                                                 levels, leaves, h, w,
+                                                 out_u8=True)
+    assert torch.equal(small.cpu(), want.to(torch.uint8))
+
+
+@pytest.mark.cuda
+def test_rgb_kernels_read_a_larger_frame(cuda_device):
+    frames = _bytes(9, 2, 40, 50, 4).to(cuda_device)
+    got = sixel_kernel.fs_dither_cube_rgb_cuda(frames, 33, 41)
+    want = sixel_kernel.fs_dither_cube_rgb_plain(frames[:, :33, :41].cpu(),
+                                                 33, 41)
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+def test_rgb_kernels_refuse_too_many_rows(cuda_device):
+    frames = torch.zeros((1, 4097, 4, 3), dtype=torch.uint8,
+                         device=cuda_device)
+    with pytest.raises(ValueError):
+        sixel_kernel.fs_dither_cube_rgb_cuda(frames, 4097, 4)

@@ -20,20 +20,29 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import List, Optional
 
-from timg_tpu import utils
-from timg_tpu.args import _BARE, _getopt_optional_args, build_arg_parser
-from timg_tpu.cli import (EXIT_CANT_OPEN_OUTPUT, EXIT_FILELIST_PROBLEM,
-                          EXIT_IMAGE_READ_ERROR, EXIT_NOT_A_TERMINAL,
-                          EXIT_PARAMETER_ERROR, EXIT_SUCCESS, _arm_signals,
-                          _atof, _atoi, _default_thread_count,
-                          _parse_pixelation, _pixelation_name,
-                          _print_verbose_stats, _resolve_auto_dither,
-                          append_to_filelist)
-from timg_tpu.colors import parse_color
-from timg_tpu.options import (NOT_INITIALIZED, ClearScreen, DisplayOptions,
-                              Pixelation, PresentationOptions,
-                              is_pixel_direct)
-from timg_tpu.render.sequencer import BufferedWriteSequencer
+from timg_tpu_torch import utils
+from timg_tpu_torch.args import _BARE, _getopt_optional_args, build_arg_parser
+from timg_tpu_torch.colors import parse_color
+from timg_tpu_torch.options import (NOT_INITIALIZED, ClearScreen,
+                                    DisplayOptions, Pixelation,
+                                    PresentationOptions, is_pixel_direct)
+from timg_tpu_torch.render.sequencer import BufferedWriteSequencer
+
+# Exit codes (ref timg.cc:98-106).
+EXIT_SUCCESS = 0
+EXIT_IMAGE_READ_ERROR = 1
+EXIT_PARAMETER_ERROR = 2
+EXIT_NOT_A_TERMINAL = 3
+EXIT_CANT_OPEN_OUTPUT = 4
+EXIT_FILELIST_PROBLEM = 5
+
+_PIXELATION_BY_CHAR = {
+    "h": Pixelation.HALF_BLOCK,
+    "q": Pixelation.QUARTER_BLOCK,
+    "k": Pixelation.KITTY,
+    "i": Pixelation.ITERM2,
+    "s": Pixelation.SIXEL,
+}
 
 interrupt_received = False
 
@@ -41,6 +50,74 @@ interrupt_received = False
 def _interrupt_handler(signo, frame):  # noqa: ARG001
     global interrupt_received
     interrupt_received = True
+
+
+def _arm_signals(handler) -> None:
+    """Arm SIGINT/SIGTERM only while showing (ref timg.cc:360-374).
+    CPython restricts signal.signal to the main thread; a request run
+    off the main thread (serve-mode tests) relies on the socket-side
+    interrupt watcher instead."""
+    import threading
+
+    if threading.current_thread() is not threading.main_thread():
+        return
+    signal.signal(signal.SIGINT, handler)
+    signal.signal(signal.SIGTERM, handler)
+
+
+def _parse_pixelation(text: Optional[str]) -> Optional[Pixelation]:
+    if not text:
+        return None
+    return _PIXELATION_BY_CHAR.get(text[0].lower())
+
+
+def _atof(text: str) -> float:
+    """C atof: parse a leading float, 0.0 when nothing parses."""
+    import re
+    m = re.match(r"\s*[+-]?(\d+\.?\d*|\.\d+)([eE][+-]?\d+)?", text)
+    return float(m.group(0)) if m else 0.0
+
+
+def _atoi(text: str) -> int:
+    """C atoi: parse a leading integer, 0 when nothing parses."""
+    import re
+    m = re.match(r"\s*[+-]?\d+", text)
+    return int(m.group(0)) if m else 0
+
+
+def _pixelation_name(p: Pixelation) -> str:
+    """ref timg.cc:412-424 PixelationToString."""
+    return {
+        Pixelation.HALF_BLOCK: "half block",
+        Pixelation.QUARTER_BLOCK: "quarter block",
+        Pixelation.KITTY: "kitty graphics",
+        Pixelation.ITERM2: "iterm2 graphics",
+        Pixelation.SIXEL: "sixel graphics",
+    }.get(p, "(none)")
+
+
+def _default_thread_count() -> int:
+    return max(1, 3 * (os.cpu_count() or 1) // 4)  # ref timg.cc:153-154
+
+
+def append_to_filelist(filelist_file: str, relative_to_filelist: bool,
+                       filelist: List[str]) -> bool:
+    """ref timg.cc:288-309."""
+    path = "/dev/stdin" if filelist_file == "-" else filelist_file
+    try:
+        with open(path, "r") as f:
+            lines = f.read().splitlines()
+    except OSError as e:
+        print(f"{filelist_file}: {e.strerror}", file=sys.stderr)
+        return False
+    prefix = filelist_file[: filelist_file.rfind("/") + 1]
+    for name in lines:
+        if not name:
+            continue
+        if relative_to_filelist and not name.startswith("/") and prefix:
+            name = prefix + name
+        filelist.append(name)
+    return True
 
 
 def _not_ported(what: str) -> int:
@@ -72,7 +149,7 @@ def main(argv: Optional[List[str]] = None) -> int:
               f"CUDA {cuda}")
         return EXIT_SUCCESS
     if args.long_help:
-        from timg_tpu.help import invoke_help_pager
+        from timg_tpu_torch.help import invoke_help_pager
         return invoke_help_pager()
     if args.short_help:
         parser.print_help()
@@ -89,7 +166,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         print(e, file=sys.stderr)
         return EXIT_PARAMETER_ERROR
 
-    from timg_tpu import term
+    from timg_tpu_torch import term
 
     term.enable_query_logging(args.verbose)
     transport_base = None
@@ -259,7 +336,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     if present.pixelation == Pixelation.NOT_CHOSEN:
         present.pixelation = Pixelation.QUARTER_BLOCK
         if tsize.font_width_px > 0 and tsize.font_height_px > 0:
-            from timg_tpu.term import query_supported_graphics_protocol
+            from timg_tpu_torch.term import query_supported_graphics_protocol
             ginfo = query_supported_graphics_protocol()
             present.tmux_workaround = ginfo.in_tmux
             if ginfo.preferred_graphics == "iterm2":
@@ -270,7 +347,7 @@ def main(argv: Optional[List[str]] = None) -> int:
                 present.pixelation = Pixelation.SIXEL
                 present.sixel_options = ginfo.sixel
     elif present.pixelation == Pixelation.SIXEL:
-        from timg_tpu.term import query_supported_graphics_protocol
+        from timg_tpu_torch.term import query_supported_graphics_protocol
         present.sixel_options = query_supported_graphics_protocol().sixel
     if present.pixelation != Pixelation.SIXEL:
         return _not_ported(f"-p {_pixelation_name(present.pixelation)}")
@@ -320,7 +397,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         display.height -= display.cell_y_px * present.grid_rows
 
     if bg_color.lower() == "auto":
-        from timg_tpu.term import query_background_color
+        from timg_tpu_torch.term import query_background_color
         pool0 = ThreadPoolExecutor(max_workers=1)
         bg_future = pool0.submit(
             lambda: parse_color(query_background_color()))
@@ -406,8 +483,6 @@ def main(argv: Optional[List[str]] = None) -> int:
         sys.stderr.flush()
 
     if args.verbose:
-        # the port's transport counters are timg_tpu's STATS dict, so
-        # the JAX package's report prints them
         _print_verbose_stats(tsize, geometry_width, geometry_height,
                              display, present, sequencer,
                              len(filelist), successful, duration, bg_color,
@@ -415,11 +490,38 @@ def main(argv: Optional[List[str]] = None) -> int:
     return exit_code
 
 
+def _resolve_auto_dither(loaded) -> str:
+    """--dither=auto policy (measured-floor fallback, VERDICT r3 #2):
+    libsixel is the reference-exact default, but its bucket-table
+    kernel runs ~1,771 1080p frames/s/chip on v5e-1 (gather-bound; the
+    15-bit lookup has no faster TPU formulation than one [64*b,128]
+    lane-gather per wavefront step, see ops/sixel_pallas3.py).  When
+    the session's first source is a video whose native rate exceeds
+    that floor, resolve to the adaptive median-cut path instead.  One
+    resolution per session keeps every frame byte-consistent."""
+    import os
+
+    try:
+        floor = float(os.environ.get("TIMG_TPU_LIBSIXEL_FLOOR_FPS",
+                                     "1700"))
+    except ValueError:
+        floor = 1700.0
+    for fut in loaded:
+        src = fut.result() if hasattr(fut, "result") else fut
+        if src is None:
+            continue
+        fps = getattr(src, "_fps", None)
+        if fps is not None and fps > floor:
+            return "adaptive"
+        return "libsixel"
+    return "libsixel"
+
+
 def _present_images(loaded, display, present, sequencer):
     """Twin of timg_tpu/cli.py:_present_images; ``--dither=auto``
-    resolves through the JAX CLI's own (jax-free) policy, so both CLIs
-    pick the same mode for the same session."""
-    from timg_tpu.render.renderer import Renderer
+    resolves with the JAX CLI's policy, so both CLIs pick the same mode
+    for the same session."""
+    from timg_tpu_torch.render.renderer import Renderer
 
     if present.sixel_dither == "auto":
         present.sixel_dither = _resolve_auto_dither(loaded)
@@ -472,6 +574,73 @@ def _make_canvas(sequencer, display, present):
                        dither=present.sixel_dither,
                        executor=ThreadPoolExecutor(
                            max_workers=sequencer.max_queue_len + 1))
+
+
+def _print_verbose_stats(tsize, gw, gh, display, present, sequencer,
+                         n_files, successful, duration, bg_color,
+                         transport_base=None):
+    """ref timg.cc:1007-1104."""
+    err = sys.stderr
+    print(f"Terminal cells: {tsize.cols}x{tsize.rows}  "
+          f"cell-pixels: {tsize.font_width_px}x{tsize.font_height_px}", file=err)
+    print(f"Active Geometry: {gw}x{gh}", file=err)
+    pix_extra = ""
+    if present.pixelation == Pixelation.SIXEL:
+        so = present.sixel_options
+        pix_extra = (" (%s and %s)" % (
+            "with cursor placement workaround"
+            if so.known_broken_cursor_placement
+            else "with default cursor placement",
+            "full cursor cell jump" if so.full_cell_jump
+            else "default cursor cell jump"))
+    elif present.pixelation == Pixelation.KITTY and present.tmux_workaround:
+        pix_extra = " (with tmux workaround)"
+    print(f"Effective pixelation: Using {present.pixelation.value}"
+          f"{pix_extra}.", file=err)
+    print(f"Background color for transparency '{bg_color}'", file=err)
+    if display.bg_pattern_color[3] == 0xFF:
+        c = display.bg_pattern_color
+        print(f"\t-> Checker pattern color RGB "
+              f"#{c[0]:02x}{c[1]:02x}{c[2]:02x}", file=err)
+    if display.local_alpha_handling:
+        print("Alpha-channel merging with background color done by timg.",
+              file=err)
+    else:
+        print("Alpha-channel handled by terminal.", file=err)
+    written = sequencer.bytes_total - sequencer.bytes_skipped
+    rate = utils.human_readable_byte_value(
+        written / duration if duration > 0 else 0)
+    print(f"{n_files} file{'s' if n_files != 1 else ''} "
+          f"({successful} successful); "
+          f"{utils.human_readable_byte_value(written)} written "
+          f"({rate}/s) {sequencer.frames_total} frames", file=err)
+    if n_files == 1 and sequencer.frames_total > 50 and duration > 0:
+        print(f"; {sequencer.frames_total / duration:.1f}fps", file=err)
+    # TPU-native extra: device->host transport accounting for sustained
+    # sixel sessions (ops/sixel_runs.py). Printed only when the device
+    # transport actually moved frames, so one-shot/reference-shaped runs
+    # keep the reference's exact verbose text above.
+    try:
+        from timg_tpu_torch.ops.sixel_runs import STATS as _ts
+        base = transport_base or {k: 0 for k in _ts}
+        d = {k: _ts[k] - base.get(k, 0) for k in _ts}
+        if d["frames_runs"] + d["frames_plane"] > 0:
+            shipped = utils.human_readable_byte_value(d["bytes_shipped"])
+            equiv = utils.human_readable_byte_value(d["bytes_plane_equiv"])
+            ratio = (d["bytes_plane_equiv"] / d["bytes_shipped"]
+                     if d["bytes_shipped"] else 0.0)
+            print(f"Device->host sixel transport: {d['frames_runs']} "
+                  f"frame(s) as run records, {d['frames_plane']} as "
+                  f"planes; {shipped} shipped vs {equiv} plane-equivalent "
+                  f"({ratio:.1f}x)", file=err)
+    except Exception:
+        pass
+    for env in ("TIMG_PIXELATION", "TIMG_DEFAULT_TITLE",
+                "TIMG_ALLOW_FRAME_SKIP", "TIMG_USE_UPPER_BLOCK",
+                "TIMG_FONT_WIDTH_CORRECT", "TIMG_SIXEL_NEWLINE_WORKAROUND"):
+        value = os.environ.get(env)
+        shown = f' = "{value}"' if value else "   (not set)"
+        print(f" {env:<29s}{shown}", file=err)
 
 
 if __name__ == "__main__":

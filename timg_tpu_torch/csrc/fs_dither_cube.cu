@@ -1,13 +1,21 @@
 // Floyd-Steinberg dither with f32 error carries, one wavefront kernel
-// templated on its quantizer: the 6x7x6 cube or a median-cut tree.
+// templated on its quantizer (the 6x7x6 cube or a median-cut tree) and
+// on its pixel source (pitched int32 RGBA words, or [B, H, W, C] bytes).
 //
 // Replaces the TPU kernels of timg_tpu/ops/sixel_pallas3.py:
 //   K6 fs_dither_cube_fused (_make_wavefront_kernel + _make_fs_kernel),
 //   K7 fs_dither_tree_fused (the same wavefront + _make_fs_tree_kernel),
-//   K3 _skewT, K4 _transpose_bwd and K5 _unskewT.
-// The three layout kernels existed only to give the TPU's 128-lane
-// vector unit a skewed, transposed column stream; here the skew is
-// indexing: at step t, row y handles x = t - 2y, so no layout pass runs.
+//   K3 _skewT, K4 _transpose_bwd and K5 _unskewT;
+// and of timg_tpu/ops/sixel_pallas.py:
+//   K9 fs_dither_cube_pallas (3-channel bytes, cube quantizer), whose
+//   XLA skew, 128-row padding and 16-column blocking are layout only.
+// The layout kernels existed only to give the TPU's 128-lane vector
+// unit a skewed, transposed column stream; here the skew is indexing:
+// at step t, row y handles x = t - 2y, so no layout pass runs, and rows
+// at y >= h do not exist.  The byte source reads each pixel's first
+// three channels in place (no pass packs them into words first); the
+// 3-channel tree entry is what timg_tpu/ops/sixel.py runs as an XLA scan
+// (_fs_dither_tree_impl) for the library API's adaptive mode.
 //
 // Layout: one block per frame, one thread per row (a thread owns R = 2
 // or 4 rows when h > 1024; __launch_bounds__ keeps a 1024-thread block
@@ -113,16 +121,46 @@ struct TreeQuant {
   }
 };
 
-template <typename Quant, typename OutT, int R>
+// Pixel sources: how a pixel of [B, pitch_h, pitch_w] elements of
+// ``stride`` bytes becomes one RGB word (r | g << 8 | b << 16).  They hold
+// no data: the kernel takes the base pointer and the pitches as plain
+// parameters, as K6 did before the source became a template parameter.
+// A source passed as a struct, or loaded as three floats, spilled 4-28
+// bytes at 4 rows a thread (ptxas); this form spills nowhere for words
+// and only in the byte tree at 2 rows a thread (16 bytes).
+
+// int32 RGBA words (K6/K7's input); stride 4, known at compile time.
+struct WordPixels {
+  static constexpr int kStride = 4;
+  __device__ __forceinline__ static int32_t load(const uint8_t* frame,
+                                                 int64_t i, int) {
+    return reinterpret_cast<const int32_t*>(frame)[i];
+  }
+};
+
+// uint8 pixels of stride >= 3 channels (K9's input); channels past the
+// third are never read.  The stride comes at run time.
+struct RgbPixels {
+  static constexpr int kStride = 0;
+  __device__ __forceinline__ static int32_t load(const uint8_t* frame,
+                                                 int64_t i, int stride) {
+    const uint8_t* p = frame + i * stride;
+    return (int32_t)p[0] | ((int32_t)p[1] << 8) | ((int32_t)p[2] << 16);
+  }
+};
+
+template <typename Pixels, typename Quant, typename OutT, int R>
 __global__ void __launch_bounds__(kMaxThreads)
-fs_dither_f32(const int32_t* __restrict__ words, int h, int w, int pitch_h,
-              int pitch_w, Quant quant, OutT* __restrict__ out) {
+fs_dither_f32(const uint8_t* __restrict__ pixels, int h, int w,
+              int pitch_h, int pitch_w, int stride, Quant quant,
+              OutT* __restrict__ out) {
   extern __shared__ int smem[];  // [Quant::kTableInts] tables, [2][3][h] mix
   int* tab = smem;
   float* mixbuf = reinterpret_cast<float*>(smem + Quant::kTableInts);
   const int b = blockIdx.x;
   const int nth = blockDim.x;
-  const int32_t* src = words + (int64_t)b * pitch_h * pitch_w;
+  if (Pixels::kStride) stride = Pixels::kStride;
+  const uint8_t* src = pixels + (int64_t)b * pitch_h * pitch_w * stride;
   OutT* dst = out + (int64_t)b * h * w;
 
   const float c7 = 7.0f / 16.0f, c5 = 5.0f / 16.0f;
@@ -147,7 +185,8 @@ fs_dither_f32(const int32_t* __restrict__ words, int h, int w, int pitch_h,
       if (y >= h) break;
       const int x = t - 2 * y;
       const bool valid = x >= 0 && x < w;
-      const int32_t word = valid ? src[(int64_t)y * pitch_w + x] : 0;
+      const int32_t word =
+          valid ? Pixels::load(src, (int64_t)y * pitch_w + x, stride) : 0;
       float v[3], color[3];
 #pragma unroll
       for (int c = 0; c < 3; ++c) {
@@ -171,47 +210,53 @@ fs_dither_f32(const int32_t* __restrict__ words, int h, int w, int pitch_h,
   }
 }
 
-template <typename Quant, typename OutT, int R>
-int launch_rows(const int32_t* words, int b, int h, int w, int pitch_h,
-                int pitch_w, Quant quant, OutT* out, cudaStream_t stream) {
+// The pixel source of a launch: base pointer, pitches, element stride.
+struct Source {
+  const void* pixels;
+  int pitch_h, pitch_w, stride;
+};
+
+template <typename Pixels, typename Quant, typename OutT, int R>
+int launch_rows(Source src, int b, int h, int w, Quant quant, OutT* out,
+                cudaStream_t stream) {
   const int rows = (h + R - 1) / R;
   const int threads = (rows + 31) / 32 * 32;
   const size_t smem = (size_t)Quant::kTableInts * sizeof(int)
                       + (size_t)2 * 3 * h * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      fs_dither_f32<Quant, OutT, R>,
+      fs_dither_f32<Pixels, Quant, OutT, R>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  fs_dither_f32<Quant, OutT, R><<<b, threads, smem, stream>>>(
-      words, h, w, pitch_h, pitch_w, quant, out);
+  fs_dither_f32<Pixels, Quant, OutT, R><<<b, threads, smem, stream>>>(
+      (const uint8_t*)src.pixels, h, w, src.pitch_h, src.pitch_w, src.stride,
+      quant, out);
   return (int)cudaGetLastError();
 }
 
-template <typename Quant, typename OutT>
-int launch(const int32_t* words, int b, int h, int w, int pitch_h,
-           int pitch_w, Quant quant, OutT* out, cudaStream_t stream) {
+template <typename Pixels, typename Quant, typename OutT>
+int launch(Source src, int b, int h, int w, Quant quant, OutT* out,
+           cudaStream_t stream) {
   if (b <= 0 || h <= 0 || w <= 0) return 0;
   if (h <= kMaxThreads)
-    return launch_rows<Quant, OutT, 1>(words, b, h, w, pitch_h, pitch_w,
-                                       quant, out, stream);
+    return launch_rows<Pixels, Quant, OutT, 1>(src, b, h, w, quant, out,
+                                               stream);
   if (h <= 2 * kMaxThreads)
-    return launch_rows<Quant, OutT, 2>(words, b, h, w, pitch_h, pitch_w,
-                                       quant, out, stream);
+    return launch_rows<Pixels, Quant, OutT, 2>(src, b, h, w, quant, out,
+                                               stream);
   if (h <= kMaxRowsPerThread * kMaxThreads)
-    return launch_rows<Quant, OutT, kMaxRowsPerThread>(
-        words, b, h, w, pitch_h, pitch_w, quant, out, stream);
+    return launch_rows<Pixels, Quant, OutT, kMaxRowsPerThread>(
+        src, b, h, w, quant, out, stream);
   return (int)cudaErrorInvalidValue;
 }
 
-template <typename Quant>
-int launch_out(const void* words, int b, int h, int w, int pitch_h,
-               int pitch_w, Quant quant, void* out, int out_u8,
-               void* stream) {
+template <typename Pixels, typename Quant>
+int launch_out(Source src, int b, int h, int w, Quant quant, void* out,
+               int out_u8, void* stream) {
   if (out_u8)
-    return launch((const int32_t*)words, b, h, w, pitch_h, pitch_w, quant,
-                  (uint8_t*)out, (cudaStream_t)stream);
-  return launch((const int32_t*)words, b, h, w, pitch_h, pitch_w, quant,
-                (int32_t*)out, (cudaStream_t)stream);
+    return launch<Pixels>(src, b, h, w, quant, (uint8_t*)out,
+                          (cudaStream_t)stream);
+  return launch<Pixels>(src, b, h, w, quant, (int32_t*)out,
+                        (cudaStream_t)stream);
 }
 
 }  // namespace
@@ -221,8 +266,8 @@ int launch_out(const void* words, int b, int h, int w, int pitch_h,
 extern "C" int timg_fs_dither_cube(const void* words, int b, int h, int w,
                                    int pitch_h, int pitch_w, void* out,
                                    int out_u8, void* stream) {
-  return launch_out(words, b, h, w, pitch_h, pitch_w, CubeQuant{}, out,
-                    out_u8, stream);
+  return launch_out<WordPixels>(Source{words, pitch_h, pitch_w, 4}, b, h, w,
+                                CubeQuant{}, out, out_u8, stream);
 }
 
 // levels: [8, 128] int32, leaves: [256] int32 (one tree for the batch).
@@ -230,9 +275,33 @@ extern "C" int timg_fs_dither_tree(const void* words, int b, int h, int w,
                                    int pitch_h, int pitch_w,
                                    const void* levels, const void* leaves,
                                    void* out, int out_u8, void* stream) {
-  return launch_out(words, b, h, w, pitch_h, pitch_w,
-                    TreeQuant{(const int32_t*)levels, (const int32_t*)leaves},
-                    out, out_u8, stream);
+  return launch_out<WordPixels>(
+      Source{words, pitch_h, pitch_w, 4}, b, h, w,
+      TreeQuant{(const int32_t*)levels, (const int32_t*)leaves}, out, out_u8,
+      stream);
+}
+
+// rgb: [b, pitch_h, pitch_w, channels] uint8 (channels >= 3), valid
+// extent h x w; out as above.  K9's contract.
+extern "C" int timg_fs_dither_cube_rgb(const void* rgb, int b, int h, int w,
+                                       int pitch_h, int pitch_w,
+                                       int channels, void* out, int out_u8,
+                                       void* stream) {
+  if (channels < 3) return (int)cudaErrorInvalidValue;
+  return launch_out<RgbPixels>(Source{rgb, pitch_h, pitch_w, channels}, b, h,
+                               w, CubeQuant{}, out, out_u8, stream);
+}
+
+extern "C" int timg_fs_dither_tree_rgb(const void* rgb, int b, int h, int w,
+                                       int pitch_h, int pitch_w,
+                                       int channels, const void* levels,
+                                       const void* leaves, void* out,
+                                       int out_u8, void* stream) {
+  if (channels < 3) return (int)cudaErrorInvalidValue;
+  return launch_out<RgbPixels>(
+      Source{rgb, pitch_h, pitch_w, channels}, b, h, w,
+      TreeQuant{(const int32_t*)levels, (const int32_t*)leaves}, out, out_u8,
+      stream);
 }
 
 extern "C" int timg_fs_dither_cube_max_rows() {

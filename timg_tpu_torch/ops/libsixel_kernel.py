@@ -27,7 +27,7 @@ import torch
 
 from timg_tpu_torch.ops import _build
 from timg_tpu_torch.ops.sixel_kernel import (_as_words, _pitched_words,
-                                             wavefront_plain)
+                                             wavefront_plain, word_planes)
 
 BUCKET_LAUNCHES = 0   # bucket_tables launches
 TABLE_LAUNCHES = 0    # fs_dither_table launches
@@ -162,7 +162,8 @@ def fs_dither_table_plain(frames: torch.Tensor, tables: torch.Tensor,
         off[:, :, hi:] = 0
         return idx.to(torch.int32), (off, o1, o2)
 
-    return wavefront_plain(words, h, w, step, 3, torch.int32, out_u8)
+    return wavefront_plain(word_planes(words, h, w, torch.int32), step, 3,
+                           out_u8)
 
 
 def fs_dither_table_cuda(frames: torch.Tensor, tables: torch.Tensor,

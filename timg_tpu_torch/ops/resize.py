@@ -1,5 +1,8 @@
-"""Lean video resize, word in / word out (counterpart of the
-``resize_video_words`` path of timg_tpu/ops/resize.py).
+"""Resizes in torch ops (counterpart of timg_tpu/ops/resize.py): the lean
+video resize, word in / word out, and the stb-exact RGBA resize of the
+library API (``resize_batch``, at the end of this module).
+
+Lean video resize (``resize_video_words``):
 
 The JAX package builds a dense [in, out] band matrix per axis from the
 stb-exact packed taps (``_band_matrix_np``) and runs two bf16 einsums
@@ -30,9 +33,10 @@ import functools
 import numpy as np
 import torch
 
-from timg_tpu.ops.resize_np import (STB_DOWNSAMPLE_FILTER,
-                                    STB_UPSAMPLE_FILTER, packed_taps,
-                                    plan_passes)
+from timg_tpu_torch.ops.resize_np import (_SMALL_FLOAT,
+                                          STB_DOWNSAMPLE_FILTER,
+                                          STB_UPSAMPLE_FILTER, packed_taps,
+                                          plan_passes)
 
 ORDER_BLOCK = 32   # inputs per block of the reference dot's sum order
 
@@ -160,3 +164,108 @@ def resize_video_words(words: torch.Tensor, out_h: int, out_w: int,
         return resize_kernel.resize_video_words_cuda(
             words, out_h, out_w, taps_v, taps_h)
     return resize_video_words_plain(words, out_h, out_w, taps_v, taps_h)
+
+
+# --------------------------------------------------------------------------
+# stb-exact RGBA resize (timg_tpu/ops/resize.py:resize_batch)
+#
+# Every f32 rounding of stb_image_resize2 as the reference configures it
+# (timg_tpu/ops/resize.py's module docstring): u8 * f32(1/255) decode,
+# "fancy alpha" 7-channel filtering of the plain and premultiplied
+# streams, reciprocal un-weighting, * 255 + 0.5 truncating encode; the
+# taps and the pass order come from ops/resize_np.py.  Each product and
+# each sum is its own torch op on f32 tensors (the scalars are f32
+# tensors too), so nothing is contracted into an FMA or reordered.  The
+# JAX package's ``_phase_plan`` (polyphase strided slices, a TPU layout
+# trick) has no twin: every pass gathers with ``index_select``.
+# --------------------------------------------------------------------------
+
+
+def _accumulate(taps, widest: int, horizontal: bool):
+    """stb accumulation structure over ``taps(t)`` values: vertical =
+    single ascending madd chain (stb:10036+); horizontal with >= 4 taps
+    = dual even/odd accumulators combined at the end (SSE 7ch gather
+    kernels); 1-3 taps = single ascending chain."""
+    if horizontal and widest >= 4:
+        even = taps(0)
+        odd = taps(1)
+        for t in range(2, widest):
+            if t % 2 == 0:
+                even = even + taps(t)
+            else:
+                odd = odd + taps(t)
+        return even + odd
+    acc = taps(0)
+    for t in range(1, widest):
+        acc = acc + taps(t)
+    return acc
+
+
+def _apply_axis(x: torch.Tensor, axis: int, starts: np.ndarray,
+                coeffs: np.ndarray, horizontal: bool) -> torch.Tensor:
+    """1-D filter along ``axis``: output o sums
+    ``x[starts[o] + t] * coeffs[o, t]`` in stb's order."""
+    n = x.shape[axis]
+    idx = torch.from_numpy(starts.astype(np.int64)).to(x.device)
+    cf = torch.from_numpy(np.ascontiguousarray(coeffs)).to(x.device)
+    shape = [1] * x.dim()
+    shape[axis] = -1
+    return _accumulate(
+        lambda t: x.index_select(axis, torch.clamp(idx + t, 0, n - 1))
+        * cf[:, t].reshape(shape),
+        coeffs.shape[1], horizontal)
+
+
+def _resize_impl(frames: torch.Tensor, taps_h, taps_w, vertical_first: bool,
+                 alpha_weighted: bool) -> torch.Tensor:
+    dev = frames.device
+    f32 = lambda v: torch.tensor(v, dtype=torch.float32, device=dev)
+    x = frames.to(torch.float32) * f32(np.float32(1.0 / 255.0))
+    if alpha_weighted:
+        a = x[..., 3:4]
+        x = torch.cat([x, x[..., :3] * a], dim=-1)          # [B,H,W,7]
+
+    if vertical_first:
+        x = _apply_axis(x, 1, *taps_h, horizontal=False)
+        x = _apply_axis(x, 2, *taps_w, horizontal=True)
+    else:
+        x = _apply_axis(x, 2, *taps_w, horizontal=True)
+        x = _apply_axis(x, 1, *taps_h, horizontal=False)
+
+    if alpha_weighted:
+        alpha = x[..., 3:4]
+        unweighted = x[..., :3]
+        premult = x[..., 4:7]
+        # un-weight by the f32 reciprocal (stb:4275-4288)
+        small = f32(_SMALL_FLOAT)
+        ialpha = f32(1.0) / torch.maximum(alpha, small)
+        rgb = torch.where(alpha < small, unweighted, premult * ialpha)
+        x = torch.cat([rgb, alpha], dim=-1)
+
+    # encode: (v * 255) + 0.5, clamped, truncated (stb encode_uint8 coders)
+    out = torch.clamp(x * f32(255.0) + f32(0.5), 0.0, 255.0)
+    return out.to(torch.uint8)
+
+
+def resize_batch(
+    frames: torch.Tensor,
+    out_h: int,
+    out_w: int,
+    *,
+    upsample_filter: str = STB_UPSAMPLE_FILTER,
+    downsample_filter: str = STB_DOWNSAMPLE_FILTER,
+    alpha_weighted: bool = True,
+) -> torch.Tensor:
+    """Resize a uint8 RGBA batch [B, H, W, 4] to [B, out_h, out_w, 4] on
+    the tensor's device, byte-exact with ops/resize_np.resize_batch_np."""
+    _, in_h, in_w, _ = frames.shape
+    if (in_h, in_w) == (out_h, out_w):
+        return frames
+    taps_h = packed_taps(in_h, out_h, upsample_filter, downsample_filter,
+                         False)
+    taps_w = packed_taps(in_w, out_w, upsample_filter, downsample_filter,
+                         True)
+    vertical_first = plan_passes(in_h, in_w, out_h, out_w, upsample_filter,
+                                 downsample_filter, alpha_weighted)
+    return _resize_impl(frames, taps_h, taps_w, vertical_first,
+                        alpha_weighted)

@@ -2,20 +2,32 @@
 timg_tpu/ops/sixel_runs.py, plane transport only).
 
 The JAX package can also ship column-run records or device-emitted DCS
-bytes and picks per window; those transports come in a later slice.
-The transport never changes the stream's bytes, only what crosses the
-link: here every window ships its [h, w] uint8 index planes, in one
-copy per window.
+bytes and picks per window; those transports come in a later slice
+(``SixelRuns`` is the record type they will carry).  The transport
+never changes the stream's bytes, only what crosses the link: here
+every window ships its [h, w] uint8 index planes, in one copy per
+window.
 """
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
-# Transport accounting: the JAX package's own counters (a jax-free
-# module), so the CLI's --verbose report reads the port's traffic too.
-from timg_tpu.ops.sixel_runs import STATS  # noqa: F401
+# Transport accounting of the process, read by the CLI's --verbose
+# report (the JAX package's counters, same keys).
+STATS = {"frames_runs": 0, "frames_plane": 0, "frames_dcs": 0,
+         "bytes_shipped": 0, "bytes_plane_equiv": 0}
+
+
+class SixelRuns(NamedTuple):
+    """Host-side compact representation of one frame's index plane."""
+    records: np.ndarray      # [n, 2] int32 (only the first sum(counts) used)
+    band_counts: np.ndarray  # [nb] int32
+    h: int
+    w: int
 
 
 def fetch_planes_or_runs(planes_dev: torch.Tensor, n_frames: int, h: int,

@@ -18,25 +18,58 @@ converts a frame to an array.
 
 from __future__ import annotations
 
+from collections import OrderedDict
+from typing import Any, Optional
+
 import numpy as np
 import torch
 from torch import nn
 
-from timg_tpu.ops import libsixel_quant as lsq
-from timg_tpu.ops.sixel_np import median_cut_tree
-from timg_tpu.render.plane_cache import PlaneCache
 from timg_tpu_torch.ops import backend
+from timg_tpu_torch.ops import libsixel_quant as lsq
 from timg_tpu_torch.ops.libsixel_kernel import (build_bucket_tables,
                                                 fs_dither_table_fused,
                                                 pad_palettes, palette_words)
 from timg_tpu_torch.ops.resize import axis_taps, resize_video_words
 from timg_tpu_torch.ops.sixel_kernel import (fs_dither_cube_fused,
                                              fs_dither_tree_fused)
+from timg_tpu_torch.ops.sixel_np import median_cut_tree
 from timg_tpu_torch.ops.sixel_runs import fetch_planes_or_runs
 from timg_tpu_torch.ops.yuv import yuv420_to_rgba_words
 
-# The port's own cache: the JAX package's SIXEL_PLANES is a different
-# object, so the two never serve each other's planes.
+_MAX = 64
+
+
+class PlaneCache:
+    """Bounded cache carrying device-computed planes from sources to
+    canvases (timg_tpu/render/plane_cache.py:PlaneCache): the source
+    primes it per frame object, the canvas pops.  Strong references to
+    the key objects keep ids stable; FIFO bounded."""
+
+    def __init__(self) -> None:
+        self._entries: OrderedDict[int, tuple] = OrderedDict()
+
+    def put(self, frame: np.ndarray, value: Any) -> None:
+        self._entries[id(frame)] = (frame, value)
+        while len(self._entries) > _MAX:
+            self._entries.popitem(last=False)
+
+    def pop(self, frame: np.ndarray) -> Optional[Any]:
+        # get-semantics: animations loop over the same frame objects
+        entry = self._entries.get(id(frame))
+        if entry is None:
+            return None
+        # The id-keying is sound only because entries hold a strong ref
+        # to the key array (an id cannot be reused *while cached*).
+        # Enforce that invariant instead of trusting it: an identity
+        # mismatch means an id was reused after an eviction freed the
+        # original -- treat as a miss rather than serving stale planes.
+        if entry[0] is not frame:
+            del self._entries[id(frame)]
+            return None
+        return entry[1]
+
+
 SIXEL_PLANES = PlaneCache()
 
 
@@ -170,7 +203,7 @@ def _dither_libsixel(words: torch.Tensor, padded_h: int, tw: int):
     """libsixel mode on a [B, padded_h, tw] window: quant.c's histogram
     samples of each padded frame (every ``sample_stride``-th pixel)
     cross to the host, which builds each frame's palette and diffuse
-    flag (jax-free libsixel_quant); the bucket tables and the dither
+    flag (ops/libsixel_quant.py); the bucket tables and the dither
     run on the device.  Returns (indices, per-frame palettes)."""
     b = words.shape[0]
     stride = lsq.sample_stride(padded_h * tw)
