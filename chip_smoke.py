@@ -12,7 +12,9 @@ only the port (timg_tpu_torch), never jax or the JAX package.  Phases:
    timg_tpu_torch/native/ (g++: the C sixel assembler, which must build,
    and the libav video decoder, which builds only where libav exists);
 2. kernels: a seeded window of 32 frames of 1080p 4:2:0 video, converted
-   on the card and resized to 720x1280 by the resize kernel, then
+   on the card and resized to 720x1280 by the resize kernel (also timed
+   at the CLI's 8-frame window, split by torch.profiler, and checked and
+   timed on 8 seeded frames of 2160x3840), then
    dithered at 720 rows and at 722 rows padded to 726 with background
    rows by each dither kernel: FS cube on words (K6) and on bytes (K9,
    3 and 4 channels); libsixel (per-frame palettes from the host, with
@@ -60,6 +62,8 @@ SEED = 1234
 IN_H, IN_W = 1080, 1920
 OUT_H, OUT_W = 720, 1280
 N_KERNEL = 32           # frames in the kernel phase's window
+N_WINDOW = 8            # frames in the CLI's video window
+H_4K, W_4K = 2160, 3840  # 4K-class input of the resize check
 # frames through the main path per dither mode (8-frame windows)
 N_MAIN = {"cube": 16, "libsixel": 8, "adaptive": 8}
 BG_WORD = -(1 << 24)    # opaque black RGBA word, as -b black pads rows
@@ -215,6 +219,65 @@ def check_equal(what: str, got, want) -> int:
     return max_abs_err(got, want)
 
 
+def resize_profile(words) -> dict:
+    """torch.profiler's device time of each kernel and copy in a resize
+    call without tap tables (as the library path calls it), per call,
+    mean of 3 calls; prints one line each and returns {name: ms}."""
+    import torch
+
+    from timg_tpu_torch.ops import resize_kernel
+
+    resize_kernel.resize_video_words_cuda(words, OUT_H, OUT_W)   # warm-up
+    torch.cuda.synchronize()
+    act = torch.profiler.ProfilerActivity
+    with torch.profiler.profile(activities=[act.CPU, act.CUDA]) as prof:
+        for _ in range(3):
+            resize_kernel.resize_video_words_cuda(words, OUT_H, OUT_W)
+        torch.cuda.synchronize()
+    split = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0))
+        if us > 0 and not e.key.startswith("aten::"):   # an aten op's
+            split[e.key] = us / 3 / 1000.0            # is its kernels'
+    if not split:
+        print("kernels: resize profile: torch.profiler saw no device time")
+    for key, ms in sorted(split.items(), key=lambda kv: -kv[1]):
+        print(f"kernels: resize profile, B={words.shape[0]} without tables: "
+              f"{ms:.6f} ms a call of device time in {key}")
+    return split
+
+
+def resize_4k(dev) -> None:
+    """The resize of 4K-class input (the TPU's row-tiled K2 domain):
+    B=8 seeded words, 2160x3840 -> 720x1280, byte-equal to the plain
+    version on CPU copies, and timed with the tables on the card."""
+    import numpy as np
+    import torch
+
+    from timg_tpu_torch.ops import resize_kernel
+    from timg_tpu_torch.ops.resize import axis_taps, resize_video_words_plain
+
+    rng = np.random.default_rng(SEED + 4)
+    img = rng.integers(0, 256, (N_WINDOW, H_4K, W_4K, 4), dtype=np.uint8)
+    img[..., 3] = 255
+    words_cpu = torch.from_numpy(img.view(np.int32).reshape(N_WINDOW, H_4K,
+                                                            W_4K))
+    del img
+    words = words_cpu.to(dev)
+    got = resize_kernel.resize_video_words_cuda(words, OUT_H, OUT_W)
+    torch.cuda.synchronize()
+    check_equal(f"resize {H_4K}x{W_4K} -> {OUT_H}x{OUT_W}", got,
+                resize_video_words_plain(words_cpu, OUT_H, OUT_W))
+    tables = [tuple(t.to(dev) for t in axis_taps(n, o, hz))
+              for n, o, hz in ((H_4K, OUT_H, False), (W_4K, OUT_W, True))]
+    ms = cuda_ms(lambda: resize_kernel.resize_video_words_cuda(
+        words, OUT_H, OUT_W, *tables), 20)
+    b = bound(N_WINDOW * (H_4K * W_4K + OUT_H * OUT_W) * 4, 0)["bound_ms"]
+    print(f"kernels: resize {H_4K}x{W_4K} -> {OUT_H}x{OUT_W}, B={N_WINDOW}: "
+          f"equal to plain (CPU); {ms:.6f} ms, bound {b:.6f} ms (bytes)")
+
+
 def kernel_phase(dev):
     import numpy as np
     import torch
@@ -235,7 +298,8 @@ def kernel_phase(dev):
     results = {}
 
     # resize: kernel vs the plain version on CPU copies, 1080p -> 720 and
-    # -> 722 rows (the height a 722-row terminal area would ask for)
+    # -> 722 rows (the height a 722-row terminal area would ask for); timed
+    # with the tap tables on the card, as the video stage holds them
     words_cpu = words.cpu()
     resized, errs = {}, []
     for oh in (OUT_H, OUT_H + 2):
@@ -260,10 +324,12 @@ def kernel_phase(dev):
         macs = OUT_H * IN_W * tv + OUT_H * OUT_W * th
     else:
         macs = IN_H * OUT_W * th + OUT_H * OUT_W * tv
+    tables = [tuple(t.to(dev) for t in axis_taps(n, o, hz))
+              for n, o, hz in ((IN_H, OUT_H, False), (IN_W, OUT_W, True))]
     results["resize"] = dict(
         max_abs_err=max(errs),
         ms=cuda_ms(lambda: resize_kernel.resize_video_words_cuda(
-            words, OUT_H, OUT_W), 20),
+            words, OUT_H, OUT_W, *tables), 20),
         plain_ms=cuda_ms(lambda: resize_video_words_plain(
             words, OUT_H, OUT_W), 3),
         library_ms=cuda_ms(lambda: torch.matmul(
@@ -271,6 +337,15 @@ def kernel_phase(dev):
         **bound(N_KERNEL * (IN_H * IN_W + OUT_H * OUT_W) * 4,
                 N_KERNEL * 3 * macs * 2))
     del planes
+    window = words[:N_WINDOW].contiguous()
+    ms = cuda_ms(lambda: resize_kernel.resize_video_words_cuda(
+        window, OUT_H, OUT_W, *tables), 20)
+    b = bound(N_WINDOW * (IN_H * IN_W + OUT_H * OUT_W) * 4, 0)["bound_ms"]
+    print(f"kernels: resize at the CLI's window, B={N_WINDOW}: {ms:.6f} ms, "
+          f"bound {b:.6f} ms (bytes)")
+    del window
+    resize_profile(words)
+    resize_4k(dev)
 
     # the dithers' two inputs: 720 rows (a multiple of 6: no pad), and
     # 722 rows padded to 726 with background rows

@@ -133,6 +133,36 @@ def test_resize_kernel_matches_plain(cuda_device, h, w, oh, ow):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("b,h,w,oh,ow", [
+    (2, 2160, 3840, 720, 1280),   # 4K-class input (K2's domain), T = 11
+    (2, 1080, 1920, 135, 240),    # 2-row tiles staged by 16-byte copies
+    (3, 333, 517, 101, 203),      # ragged tiles on both axes
+    (2, 40, 30, 20, 15)])         # output narrower than one tile
+def test_resize_kernel_tiles_match_plain(cuda_device, b, h, w, oh, ow):
+    from timg_tpu_torch.ops import resize_kernel
+    words = _words(h + w, b, h, w)
+    want = tresize.resize_video_words_plain(words, oh, ow)
+    before = resize_kernel.LAUNCHES
+    got = resize_kernel.resize_video_words_cuda(words.to(cuda_device), oh, ow)
+    torch.cuda.synchronize()
+    assert resize_kernel.LAUNCHES == before + 1
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+def test_resize_kernel_takes_device_tables(cuda_device):
+    """The video stage's call: the tap tables as device buffers."""
+    from timg_tpu_torch.ops import resize_kernel
+    words = _words(11, 2, 270, 384)
+    tables = [tuple(t.to(cuda_device) for t in tresize.axis_taps(n, o, hz))
+              for n, o, hz in ((270, 135, False), (384, 240, True))]
+    got = resize_kernel.resize_video_words_cuda(words.to(cuda_device), 135,
+                                                240, *tables)
+    assert torch.equal(got.cpu(),
+                       tresize.resize_video_words_plain(words, 135, 240))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("b,h,w", [(2, 18, 25), (3, 130, 200), (2, 1100, 40),
                                    (1, 4096, 8)])
 def test_dither_kernel_matches_plain(cuda_device, b, h, w):

@@ -124,6 +124,66 @@ def test_resize_covers_both_pass_orders():
     assert orders == {True, False}
 
 
+# The fused CUDA resize's tile plan (csrc/resize_words.cu; the kernel
+# itself is held against the plain version on the card in
+# tests/test_torch_kernels.py).
+@pytest.mark.parametrize("h,w,oh,ow", [
+    (1080, 1920, 720, 1280), (1080, 1920, 722, 1280), (1080, 1920, 480, 800),
+    (2160, 3840, 720, 1280), (720, 1280, 300, 500), (96, 128, 192, 256),
+    (1080, 1920, 135, 240), (2160, 3840, 270, 480),   # 2-row staged tiles
+    (1080, 1920, 16, 28),      # 68x: fits only above the preferred budget
+    (2160, 3840, 16, 28)])     # 135x: no tile fits
+def test_tile_plan_covers_every_tap(h, w, oh, ow):
+    if (h, w, oh, ow) == (2160, 3840, 16, 28):
+        with pytest.raises(ValueError, match="even a 1x32 tile"):
+            tresize.plan_tiles(h, w, oh, ow)
+        return
+    sv, tv = tresize.axis_taps(h, oh, False)
+    sh, th = tresize.axis_taps(w, ow, True)
+    plan = tresize.plan_tiles(h, w, oh, ow)
+    assert plan.vertical_first == tresize.vertical_first(h, w, oh, ow)
+    assert (plan.taps_v, plan.taps_h) == (tv.shape[1], th.shape[1])
+    assert plan.cols in tresize.TILE_COLS
+    assert tresize.TILE_THREADS % plan.cols == 0
+    regions = tresize.tile_smem_regions(
+        plan.vertical_first, plan.rows, plan.cols, plan.mid_n, plan.stage_n,
+        plan.taps_v, plan.taps_h)
+    offsets = np.cumsum([0] + [size for _, size in regions])
+    # the staged words (16-byte cp.async) first, every region aligned
+    assert regions[0][0] == 16
+    assert all(o % align == 0 for o, (align, _) in zip(offsets, regions))
+    assert plan.smem_bytes == offsets[-1]
+    assert plan.smem_bytes <= tresize.SMEM_MAX
+    if (h, w, oh, ow) != (1080, 1920, 16, 28):
+        assert plan.smem_bytes <= tresize.SMEM_PREFERRED
+    # every tap of every output of a tile lies in its tile row's and tile
+    # column's windows, and each window fits the mid or staged extent
+    for windows, starts, taps, tile, n in (
+            (plan.windows_v, sv.numpy(), tv.shape[1], plan.rows, oh),
+            (plan.windows_h, sh.numpy(), th.shape[1], plan.cols, ow)):
+        assert windows.shape == (-(-n // tile), 2)
+        for j, (lo, hi) in enumerate(windows):
+            s = starts[j * tile:(j + 1) * tile]
+            assert lo <= s.min() and s.max() + taps <= hi
+    span_v = int((plan.windows_v[:, 1] - plan.windows_v[:, 0]).max())
+    span_h = int((plan.windows_h[:, 1] - plan.windows_h[:, 0]).max())
+    if plan.vertical_first:
+        assert (plan.mid_n, plan.stage_n) == (span_h, span_v)
+    else:
+        assert (plan.mid_n, plan.stage_n) == (span_v, 0)
+
+
+@pytest.mark.parametrize("start", range(64))
+def test_first_flush_matches_reference_order(start):
+    """The kernel's block ends (first_flush, then every 32 taps) are the
+    taps t > 0 at which the reference order adds a block's sums to the
+    total: (start + t) % 32 == 0."""
+    f = tresize.first_flush(start)
+    for taps in range(1, 41):
+        want = [t for t in range(1, taps) if (start + t) % 32 == 0]
+        assert list(range(f, taps, tresize.ORDER_BLOCK)) == want
+
+
 def test_padded_plane_dims_matches_jax():
     for oh, ow in [(72, 160), (720, 1280), (726, 1281), (1, 1)]:
         assert tresize.padded_plane_dims(oh, ow) == \

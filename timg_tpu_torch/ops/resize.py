@@ -28,6 +28,7 @@ pin no such difference reaches the bytes.
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 
 import numpy as np
@@ -91,6 +92,131 @@ def vertical_first(in_h: int, in_w: int, out_h: int, out_w: int) -> bool:
     timg_tpu/ops/resize.py:322-334)."""
     return plan_passes(in_h, in_w, out_h, out_w, STB_UPSAMPLE_FILTER,
                        STB_DOWNSAMPLE_FILTER, False)
+
+
+def first_flush(start: int) -> int:
+    """The tap index t at which the reference order first adds a block's
+    ``even + odd`` to the running total, for an output whose taps start
+    at input ``start``: the first t > 0 with (start + t) % 32 == 0.  The
+    later flushes follow every 32 taps.  The CUDA kernel computes this
+    once per output instead of testing every tap's input index."""
+    return ORDER_BLOCK - start % ORDER_BLOCK
+
+
+# --------------------------------------------------------------------------
+# Tiles of the fused CUDA resize (csrc/resize_words.cu)
+#
+# A block owns rows x cols output words of one frame.  Its first pass
+# fills a mid tile in shared memory: for vertical-first, its `rows`
+# output rows over a window of input columns (the span its columns' taps
+# touch); for horizontal-first, a window of input rows (the span its rows'
+# taps touch) over its `cols` output columns.  The second pass reads only
+# that tile.  The planner sizes the tile under the shared-memory budget.
+# --------------------------------------------------------------------------
+
+TILE_THREADS = 256            # threads a block; a tile's cols divide it
+TILE_ROWS = (16, 8, 4, 2, 1)
+TILE_COLS = (128, 64, 32)
+SMEM_PREFERRED = 75 * 1024    # keeps 3 blocks of 256 threads on an SM
+SMEM_MAX = 232448             # the most a Hopper block can opt in to
+
+
+@dataclasses.dataclass(frozen=True)
+class TilePlan:
+    """One geometry's tiling.  ``windows_v[i] = (lo, hi)``: the input
+    rows [lo, hi) that the vertical taps of tile row i read;
+    ``windows_h[j]`` the input columns of tile column j.  ``mid_n`` is
+    the mid tile's extent on the first pass's other axis (the widest
+    ``windows_h`` span if vertical-first, else the tallest
+    ``windows_v``); ``stage_n``, vertical-first only, the tallest
+    ``windows_v`` span: the input rows staged in shared memory."""
+    vertical_first: bool
+    rows: int
+    cols: int
+    taps_v: int
+    taps_h: int
+    mid_n: int
+    stage_n: int
+    windows_v: np.ndarray     # int32 [tile rows, 2]
+    windows_h: np.ndarray     # int32 [tile columns, 2]
+    smem_bytes: int
+
+
+def _windows(starts: np.ndarray, taps: int, tile: int) -> np.ndarray:
+    n = starts.shape[0]
+    return np.array([(starts[i:i + tile].min(),
+                      starts[i:i + tile].max() + taps)
+                     for i in range(0, n, tile)], np.int32).reshape(-1, 2)
+
+
+def tile_smem_regions(vfirst: bool, rows: int, cols: int, mid_n: int,
+                      stage_n: int, taps_v: int, taps_h: int) -> tuple:
+    """(alignment, bytes) of each region of one block's shared memory, in
+    the order the kernel carves it: the staged input words
+    (vertical-first, rows padded to 32 words; filled by 16-byte copies),
+    the tile's taps (two f32 each) of both axes, their int32 starts, then
+    the 3-channel f32 mid tile."""
+    m = rows * mid_n if vfirst else mid_n * cols
+    pitch = -(-(mid_n + 3) // 32) * 32
+    return ((16, 4 * stage_n * pitch), (8, 8 * rows * taps_v),
+            (8, 8 * cols * taps_h), (4, 4 * (rows + cols)), (4, 12 * m))
+
+
+def tile_smem_bytes(*args) -> int:
+    """Shared memory of one block (``tile_smem_regions``' arguments);
+    raises ``AssertionError`` if a region would start misaligned."""
+    offset = 0
+    for align, size in tile_smem_regions(*args):
+        assert offset % align == 0, (args, offset, align)
+        offset += size
+    return offset
+
+
+@functools.lru_cache(maxsize=64)
+def plan_tiles(in_h: int, in_w: int, out_h: int, out_w: int) -> TilePlan:
+    """Tile size and first-pass windows of the fused resize.
+
+    Among the tiles whose shared memory fits ``SMEM_PREFERRED``, the one
+    with the fewest first-pass points and staged words per output word
+    (least halo), the larger on a tie; where none fits, the smallest
+    tile if it fits ``SMEM_MAX``.  Raises ``ValueError`` where even a
+    1 x 32 tile does not.  The band spans about 4 inputs per output
+    step, so a 1 x 32 tile holds 33 bands of taps (8 bytes each) and a
+    mid tile of one band by 32 columns (horizontal-first) or 31 steps
+    plus a band (vertical-first), 4 bytes a channel: it stops fitting
+    near a 90x downscale of both axes (2160x3840 -> 16x28, 135x,
+    raises; 1080x1920 -> 16x28, 68x, fits)."""
+    vfirst = vertical_first(in_h, in_w, out_h, out_w)
+    sv, tv = axis_taps(in_h, out_h, False)
+    sh, th = axis_taps(in_w, out_w, True)
+    taps_v, taps_h = tv.shape[1], th.shape[1]
+    widest = max(32, 1 << (out_w - 1).bit_length())
+    best = smallest = None
+    for cols in (c for c in TILE_COLS if c <= widest):
+        for rows in TILE_ROWS:
+            win_v = _windows(sv.numpy(), taps_v, rows)
+            win_h = _windows(sh.numpy(), taps_h, cols)
+            span_v = int((win_v[:, 1] - win_v[:, 0]).max())
+            span_h = int((win_h[:, 1] - win_h[:, 0]).max())
+            mid_n, stage_n = (span_h, span_v) if vfirst else (span_v, 0)
+            smem = tile_smem_bytes(vfirst, rows, cols, mid_n, stage_n,
+                                   taps_v, taps_h)
+            plan = TilePlan(vfirst, rows, cols, taps_v, taps_h, mid_n,
+                            stage_n, win_v, win_h, smem)
+            points = (rows + stage_n) * mid_n if vfirst else mid_n * cols
+            cost = (points / (rows * cols), -rows * cols)
+            if smem <= SMEM_PREFERRED and (best is None or cost < best[0]):
+                best = (cost, plan)
+            if smallest is None or smem < smallest.smem_bytes:
+                smallest = plan
+    if best is not None:
+        return best[1]
+    if smallest.smem_bytes <= SMEM_MAX:
+        return smallest
+    raise ValueError(
+        f"resize {in_h}x{in_w} -> {out_h}x{out_w}: even a "
+        f"{smallest.rows}x{smallest.cols} tile needs "
+        f"{smallest.smem_bytes} bytes of shared memory (at most {SMEM_MAX})")
 
 
 def padded_plane_dims(out_h: int, out_w: int) -> tuple:
