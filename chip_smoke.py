@@ -14,13 +14,18 @@ only the port (timg_tpu_torch), never jax or the JAX package.  Phases:
 2. kernels: a seeded window of 32 frames of 1080p 4:2:0 video, converted
    on the card and resized to 720x1280 by the resize kernel (also timed
    at the CLI's 8-frame window, split by torch.profiler, and checked and
-   timed on 8 seeded frames of 2160x3840), then
+   timed on 8 seeded frames of 2160x3840, which the two-pass route also
+   resizes into 16x28 pixels, a geometry no fused tile fits), then
    dithered at 720 rows and at 722 rows padded to 726 with background
    rows by each dither kernel: FS cube on words (K6) and on bytes (K9,
    3 and 4 channels); libsixel (per-frame palettes from the host, with
    one flat frame whose diffuse flag is 0, the bucket-table build and
    the table dither); and the median-cut tree on words (K7) and on
-   bytes.  Each kernel must equal its plain PyTorch version byte for
+   bytes.  The f32 driver is also checked and timed at the batches the
+   main paths launch besides 32: K6 and K7 at the CLI's 8-frame window,
+   K9 and the byte tree at one frame (the library's per-frame loop), and
+   K6 and K7 on 32 rows (one warp alone), each with its time a serial
+   step.  Each kernel must equal its plain PyTorch version byte for
    byte (the resize's on CPU copies, the others' on the card); all are
    timed with CUDA events beside their bound (bytes over 3.35 TB/s or
    operations over 67 TFLOP/s, whichever is larger) and, where one
@@ -64,6 +69,8 @@ OUT_H, OUT_W = 720, 1280
 N_KERNEL = 32           # frames in the kernel phase's window
 N_WINDOW = 8            # frames in the CLI's video window
 H_4K, W_4K = 2160, 3840  # 4K-class input of the resize check
+PASS_H, PASS_W = 16, 28  # 4K into this many pixels takes the two passes
+WARP_ROWS = 32          # rows of one warp of the f32 dither
 # frames through the main path per dither mode (8-frame windows)
 N_MAIN = {"cube": 16, "libsixel": 8, "adaptive": 8}
 BG_WORD = -(1 << 24)    # opaque black RGBA word, as -b black pads rows
@@ -221,8 +228,8 @@ def check_equal(what: str, got, want) -> int:
 
 def resize_profile(words) -> dict:
     """torch.profiler's device time of each kernel and copy in a resize
-    call without tap tables (as the library path calls it), per call,
-    mean of 3 calls; prints one line each and returns {name: ms}."""
+    call, per call, mean of 3 calls; prints one line each and returns
+    {name: ms}."""
     import torch
 
     from timg_tpu_torch.ops import resize_kernel
@@ -243,7 +250,7 @@ def resize_profile(words) -> dict:
     if not split:
         print("kernels: resize profile: torch.profiler saw no device time")
     for key, ms in sorted(split.items(), key=lambda kv: -kv[1]):
-        print(f"kernels: resize profile, B={words.shape[0]} without tables: "
+        print(f"kernels: resize profile, B={words.shape[0]}: "
               f"{ms:.6f} ms a call of device time in {key}")
     return split
 
@@ -251,12 +258,12 @@ def resize_profile(words) -> dict:
 def resize_4k(dev) -> None:
     """The resize of 4K-class input (the TPU's row-tiled K2 domain):
     B=8 seeded words, 2160x3840 -> 720x1280, byte-equal to the plain
-    version on CPU copies, and timed with the tables on the card."""
+    version on CPU copies, and timed."""
     import numpy as np
     import torch
 
     from timg_tpu_torch.ops import resize_kernel
-    from timg_tpu_torch.ops.resize import axis_taps, resize_video_words_plain
+    from timg_tpu_torch.ops.resize import resize_video_words_plain
 
     rng = np.random.default_rng(SEED + 4)
     img = rng.integers(0, 256, (N_WINDOW, H_4K, W_4K, 4), dtype=np.uint8)
@@ -269,13 +276,65 @@ def resize_4k(dev) -> None:
     torch.cuda.synchronize()
     check_equal(f"resize {H_4K}x{W_4K} -> {OUT_H}x{OUT_W}", got,
                 resize_video_words_plain(words_cpu, OUT_H, OUT_W))
-    tables = [tuple(t.to(dev) for t in axis_taps(n, o, hz))
-              for n, o, hz in ((H_4K, OUT_H, False), (W_4K, OUT_W, True))]
     ms = cuda_ms(lambda: resize_kernel.resize_video_words_cuda(
-        words, OUT_H, OUT_W, *tables), 20)
+        words, OUT_H, OUT_W), 20)
     b = bound(N_WINDOW * (H_4K * W_4K + OUT_H * OUT_W) * 4, 0)["bound_ms"]
     print(f"kernels: resize {H_4K}x{W_4K} -> {OUT_H}x{OUT_W}, B={N_WINDOW}: "
           f"equal to plain (CPU); {ms:.6f} ms, bound {b:.6f} ms (bytes)")
+    return words, words_cpu
+
+
+def resize_passes(words, words_cpu) -> dict:
+    """The two-pass route, for geometries no fused tile fits: the 4K
+    window (B=8) into 16x28 pixels (a terminal area of a few cells),
+    byte-equal to the plain version on CPU copies; timed beside the
+    plain version and the JAX package's formulation (two bf16 band
+    matmuls)."""
+    import torch
+
+    from timg_tpu_torch.ops import resize_kernel
+    from timg_tpu_torch.ops.resize import (_band_matrix_np, axis_taps,
+                                           plan_tiles,
+                                           resize_video_words_plain,
+                                           vertical_first)
+
+    oh, ow = PASS_H, PASS_W
+    if plan_tiles(H_4K, W_4K, oh, ow) is not None:
+        fail(f"resize {H_4K}x{W_4K} -> {oh}x{ow} no longer takes the "
+             "two-pass route")
+    before = resize_kernel.PASS_LAUNCHES
+    got = resize_kernel.resize_video_words_cuda(words, oh, ow)
+    torch.cuda.synchronize()
+    if resize_kernel.PASS_LAUNCHES != before + 1:
+        fail("the two-pass resize route did not launch")
+    err = check_equal(f"resize (two passes) {H_4K}x{W_4K} -> {oh}x{ow}", got,
+                      resize_video_words_plain(words_cpu, oh, ow))
+    dev = words.device
+    planes = torch.stack([((words >> (8 * c)) & 0xFF) for c in range(3)],
+                         dim=1).to(torch.bfloat16)
+    mv = torch.from_numpy(_band_matrix_np(H_4K, oh, False)).to(
+        dev, torch.bfloat16)
+    mw = torch.from_numpy(_band_matrix_np(W_4K, ow, True)).to(
+        dev, torch.bfloat16)
+    tv = axis_taps(H_4K, oh, False)[1].shape[1]
+    th = axis_taps(W_4K, ow, True)[1].shape[1]
+    if vertical_first(H_4K, W_4K, oh, ow):
+        macs = oh * W_4K * tv + oh * ow * th
+    else:
+        macs = H_4K * ow * th + oh * ow * tv
+    r = dict(
+        max_abs_err=err,
+        ms=cuda_ms(lambda: resize_kernel.resize_video_words_cuda(
+            words, oh, ow), 20),
+        plain_ms=cuda_ms(lambda: resize_video_words_plain(words, oh, ow), 3),
+        library_ms=cuda_ms(lambda: torch.matmul(
+            torch.matmul(mv.T, planes), mw), 20),
+        **bound(N_WINDOW * (H_4K * W_4K + oh * ow) * 4,
+                N_WINDOW * 3 * macs * 2))
+    print(f"kernels: resize (two passes) {H_4K}x{W_4K} -> {oh}x{ow}, "
+          f"B={N_WINDOW}: equal to plain (CPU); {r['ms']:.6f} ms, bound "
+          f"{r['bound_ms']:.6f} ms ({r['bound_by']})")
+    return r
 
 
 def kernel_phase(dev):
@@ -291,6 +350,7 @@ def kernel_phase(dev):
     from timg_tpu_torch.ops.sixel_np import median_cut_tree
     from timg_tpu_torch.ops.yuv import yuv420_to_rgba_words
 
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     ys, us, vs = yuv_frames(N_KERNEL, SEED)
     planes = [torch.from_numpy(p).to(dev) for p in (ys, us, vs)]
     words = yuv420_to_rgba_words(*planes, False)
@@ -298,8 +358,7 @@ def kernel_phase(dev):
     results = {}
 
     # resize: kernel vs the plain version on CPU copies, 1080p -> 720 and
-    # -> 722 rows (the height a 722-row terminal area would ask for); timed
-    # with the tap tables on the card, as the video stage holds them
+    # -> 722 rows (the height a 722-row terminal area would ask for)
     words_cpu = words.cpu()
     resized, errs = {}, []
     for oh in (OUT_H, OUT_H + 2):
@@ -324,12 +383,10 @@ def kernel_phase(dev):
         macs = OUT_H * IN_W * tv + OUT_H * OUT_W * th
     else:
         macs = IN_H * OUT_W * th + OUT_H * OUT_W * tv
-    tables = [tuple(t.to(dev) for t in axis_taps(n, o, hz))
-              for n, o, hz in ((IN_H, OUT_H, False), (IN_W, OUT_W, True))]
     results["resize"] = dict(
         max_abs_err=max(errs),
         ms=cuda_ms(lambda: resize_kernel.resize_video_words_cuda(
-            words, OUT_H, OUT_W, *tables), 20),
+            words, OUT_H, OUT_W), 20),
         plain_ms=cuda_ms(lambda: resize_video_words_plain(
             words, OUT_H, OUT_W), 3),
         library_ms=cuda_ms(lambda: torch.matmul(
@@ -339,13 +396,13 @@ def kernel_phase(dev):
     del planes
     window = words[:N_WINDOW].contiguous()
     ms = cuda_ms(lambda: resize_kernel.resize_video_words_cuda(
-        window, OUT_H, OUT_W, *tables), 20)
+        window, OUT_H, OUT_W), 20)
     b = bound(N_WINDOW * (IN_H * IN_W + OUT_H * OUT_W) * 4, 0)["bound_ms"]
     print(f"kernels: resize at the CLI's window, B={N_WINDOW}: {ms:.6f} ms, "
           f"bound {b:.6f} ms (bytes)")
     del window
     resize_profile(words)
-    resize_4k(dev)
+    results["resize_passes"] = resize_passes(*resize_4k(dev))
 
     # the dithers' two inputs: 720 rows (a multiple of 6: no pad), and
     # 722 rows padded to 726 with background rows
@@ -503,14 +560,56 @@ def kernel_phase(dev):
         **bound(px720 * (3 + 1) + (8 * 128 + 256) * 4,
                 px720 * TREE_OPS_PER_PX))
 
+    # the f32 driver at the other batches the main paths launch: the
+    # CLI's 8-frame window (K6 at 720 rows, K7 at 726) and one frame, as
+    # the library's per-frame adaptive loop runs the byte tree (and K9);
+    # then one warp alone (32 rows of one frame): a step's latency with no
+    # warp edge and no other warp on the SM
+    lone = (w720[:1, :WARP_ROWS].contiguous(), WARP_ROWS, OUT_W)
+    shapes = (
+        ("fs_dither_cube", N_WINDOW, OUT_H, sixel_kernel.fs_dither_cube_cuda,
+         sixel_kernel.fs_dither_cube_plain, (w720[:N_WINDOW], OUT_H, OUT_W)),
+        ("fs_dither_tree", N_WINDOW, OUT_H + 6,
+         sixel_kernel.fs_dither_tree_cuda, sixel_kernel.fs_dither_tree_plain,
+         (padded[:N_WINDOW], levels, leaves, OUT_H + 6, OUT_W)),
+        ("fs_dither_cube_rgb", 1, OUT_H, sixel_kernel.fs_dither_cube_rgb_cuda,
+         sixel_kernel.fs_dither_cube_rgb_plain,
+         (rgba720[:1], OUT_H, OUT_W, True)),
+        ("fs_dither_tree_rgb", 1, OUT_H, sixel_kernel.fs_dither_tree_rgb_cuda,
+         sixel_kernel.fs_dither_tree_rgb_plain,
+         (rgba720[:1], levels, leaves, OUT_H, OUT_W, True)),
+        ("fs_dither_cube", 1, WARP_ROWS, sixel_kernel.fs_dither_cube_cuda,
+         sixel_kernel.fs_dither_cube_plain, lone),
+        ("fs_dither_tree", 1, WARP_ROWS, sixel_kernel.fs_dither_tree_cuda,
+         sixel_kernel.fs_dither_tree_plain,
+         (lone[0], levels, leaves) + lone[1:]))
+    for name, b, h, kern, plain, args in shapes:
+        check_equal(f"{name} at B={b}, {h}x{OUT_W}", kern(*args),
+                    plain(*args))
+        ms = cuda_ms(lambda: kern(*args), 20)
+        plan = sixel_kernel.plan_bands(b, h, sms)
+        print(f"kernels: {name} B={b} {h}x{OUT_W} ({plan.bands} bands of "
+              f"{plan.warps} warps): equal to plain; {ms:.6f} ms, "
+              f"{ms * 1000 / steps(h):.6f} us a step")
+
+    rows = {"dither": OUT_H, "cube_rgb": OUT_H, "tree": OUT_H + 6,
+            "table": OUT_H + 6, "tree_rgb": OUT_H}
     for name, r in results.items():
         lib_ms = r["library_ms"]
-        print(f"kernels: {name}: kernel {r['ms']:.6f} ms, plain "
+        per_step = (f", {r['ms'] * 1000 / steps(rows[name]):.6f} us a step"
+                    if name in rows else "")
+        print(f"kernels: {name}: kernel {r['ms']:.6f} ms{per_step}, plain "
               f"{r['plain_ms']:.6f} ms, bound {r['bound_ms']:.6f} ms "
               f"({r['bound_by']}), library "
               f"{'none' if lib_ms is None else f'{lib_ms:.6f} ms'} per "
-              f"{N_KERNEL}-frame window")
+              f"{N_WINDOW if name == 'resize_passes' else N_KERNEL}-frame "
+              "window")
     return results
+
+
+def steps(h: int) -> int:
+    """Serial steps of an FS wavefront of h rows at the output width."""
+    return OUT_W + 2 * (h - 1)
 
 
 def rgba_frames(n: int, seed: int):
@@ -656,6 +755,7 @@ def main() -> int:
     from timg_tpu_torch.render import sixel_render
     counters = {   # kernel -> (module, its launch counter)
         "resize": (resize_kernel, "LAUNCHES"),
+        "resize_passes": (resize_kernel, "PASS_LAUNCHES"),
         "dither": (sixel_kernel, "LAUNCHES"),
         "tree": (sixel_kernel, "TREE_LAUNCHES"),
         "bucket": (libsixel_kernel, "BUCKET_LAUNCHES"),
@@ -782,17 +882,19 @@ def main() -> int:
 
     entries = [
         ("resize_words", "resize", "resize_words.cu",
-         "timg_tpu/ops/resize_pallas.py:173"),
+         "timg_tpu/ops/resize_pallas.py:227"),
+        ("resize_passes", "resize_passes", "resize_passes.cu",
+         "timg_tpu/ops/resize_pallas.py:374"),
         ("fs_dither_cube", "dither", "fs_dither_cube.cu",
-         "timg_tpu/ops/sixel_pallas3.py:337"),
+         "timg_tpu/ops/sixel_pallas3.py:391"),
         ("bucket_tables", "bucket", "bucket_tables.cu",
          "timg_tpu/ops/sixel_pallas3.py:728"),
         ("fs_dither_table", "table", "fs_dither_table.cu",
-         "timg_tpu/ops/sixel_pallas3.py:600"),
+         "timg_tpu/ops/sixel_pallas3.py:662"),
         ("fs_dither_tree", "tree", "fs_dither_cube.cu",
-         "timg_tpu/ops/sixel_pallas3.py:823"),
+         "timg_tpu/ops/sixel_pallas3.py:876"),
         ("fs_dither_cube_rgb", "cube_rgb", "fs_dither_cube.cu",
-         "timg_tpu/ops/sixel_pallas.py:95"),
+         "timg_tpu/ops/sixel_pallas.py:124"),
         ("fs_dither_tree_rgb", "tree_rgb", "fs_dither_cube.cu",
          "timg_tpu/ops/sixel.py:373"),
     ]

@@ -150,21 +150,101 @@ def test_resize_kernel_tiles_match_plain(cuda_device, b, h, w, oh, ow):
 
 
 @pytest.mark.cuda
-def test_resize_kernel_takes_device_tables(cuda_device):
-    """The video stage's call: the tap tables as device buffers."""
+def test_video_stage_matches_plain(cuda_device):
+    """The video window's stage on the card (convert, the resize with its
+    own cached tables, background rows) against the same steps on the
+    CPU: convert, resize_video_words_plain, background pad."""
+    from timg_tpu_torch.ops.yuv import yuv420_to_rgba_words
+    from timg_tpu_torch.render.plane_cache import VideoStage
+    rng = np.random.default_rng(11)
+    y = torch.from_numpy(rng.integers(0, 256, (2, 270, 384), dtype=np.uint8))
+    u, v = (torch.from_numpy(rng.integers(0, 256, (2, 135, 192),
+                                          dtype=np.uint8)) for _ in range(2))
+    bg = -(1 << 24) | 0x203040
+    stage = VideoStage(135, 240, False, 138, bg)
+    got = stage(y.to(cuda_device), u.to(cuda_device), v.to(cuda_device))
+    words = tresize.resize_video_words_plain(
+        yuv420_to_rgba_words(y, u, v, False), 135, 240)
+    want = torch.cat([words, torch.full((2, 3, 240), bg, dtype=torch.int32)],
+                     dim=1)
+    assert torch.equal(got.cpu(), want)
+
+
+# Geometries that no fused tile fits (ops/resize.py plan_tiles -> None):
+# they take the two-pass kernels of csrc/resize_passes.cu.
+UNTILED = [(2160, 3840, 16, 28), (2160, 3840, 24, 40), (1080, 1920, 12, 20)]
+
+
+@pytest.mark.parametrize("h,w,oh,ow,tiled", [g + (False,) for g in UNTILED]
+                         + [(1080, 1920, 16, 28, True)])
+def test_tile_planner_refuses_only_untileable(h, w, oh, ow, tiled):
+    assert (tresize.plan_tiles(h, w, oh, ow) is not None) == tiled
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,w,oh,ow", UNTILED)
+def test_resize_passes_match_plain(cuda_device, h, w, oh, ow):
     from timg_tpu_torch.ops import resize_kernel
-    words = _words(11, 2, 270, 384)
-    tables = [tuple(t.to(cuda_device) for t in tresize.axis_taps(n, o, hz))
-              for n, o, hz in ((270, 135, False), (384, 240, True))]
-    got = resize_kernel.resize_video_words_cuda(words.to(cuda_device), 135,
-                                                240, *tables)
-    assert torch.equal(got.cpu(),
-                       tresize.resize_video_words_plain(words, 135, 240))
+    words = _words(oh + ow, 2, h, w)
+    want = tresize.resize_video_words_plain(words, oh, ow)
+    before = (resize_kernel.LAUNCHES, resize_kernel.PASS_LAUNCHES)
+    got = resize_kernel.resize_video_words_cuda(words.to(cuda_device), oh, ow)
+    torch.cuda.synchronize()
+    assert (resize_kernel.LAUNCHES, resize_kernel.PASS_LAUNCHES) == (
+        before[0], before[1] + 1)
+    assert torch.equal(got.cpu(), want)
+
+
+# The f32 driver's band plan (csrc/fs_dither_cube.cu, planned by
+# sixel_kernel.plan_bands) at the batch sizes of the main paths.
+@pytest.mark.parametrize("b", [1, 8, 32])
+@pytest.mark.parametrize("h", [1, 31, 720, 726, 1100, 4096])
+def test_band_plan_covers_rows_in_ticket_order(b, h):
+    sms = 132
+    plan = sixel_kernel.plan_bands(b, h, sms)
+    rows = plan.warps * sixel_kernel.ROWS_PER_WARP
+    # every row in exactly one band, and no band empty
+    owner = [y // rows for y in range(h)]
+    assert sorted(set(owner)) == list(range(plan.bands))
+    assert (plan.bands - 1) * rows < h <= plan.bands * rows
+    # the block fits the SM's registers at the driver's launch bounds
+    assert 1 <= plan.warps <= sixel_kernel.MAX_WARPS
+    assert plan.warps * 32 * sixel_kernel.REGISTERS_PER_THREAD \
+        <= sixel_kernel.REGISTERS_PER_SM
+    # tickets: one block for each (frame, band), and every band's ticket
+    # comes after the band above it in the same frame
+    tickets = {sixel_kernel.ticket_band(t, b): t
+               for t in range(b * plan.bands)}
+    assert set(tickets) == {(f, j) for f in range(b)
+                            for j in range(plan.bands)}
+    assert all(tickets[f, j - 1] < tickets[f, j]
+               for f in range(b) for j in range(1, plan.bands))
+    # blocks of MIN_WARPS warps where the frame has that many, more where
+    # the batch would otherwise leave SMs idle
+    n_warps = -(-h // 32)
+    assert plan.warps >= min(n_warps, sixel_kernel.MIN_WARPS)
+    assert plan.bands <= max(1, sms // b) \
+        or plan.warps == sixel_kernel.MAX_WARPS
+    assert 2 * plan.bands >= min(sms // b,
+                                 -(-n_warps // sixel_kernel.MIN_WARPS))
+    # the band edges' carry arrays hold every step a warp runs: to its
+    # last row at x = w, rounded up to a pair of chunks
+    for w in (1, 1280):
+        assert sixel_kernel.edge_len(h, w) >= \
+            2 * (h - 1) + w + 1 + 2 * sixel_kernel.CHUNK
+
+
+# The f32 driver at warp and band edges: 31-33 and 65 rows (a partial
+# warp, one full warp, one row over, two warps and a row) at 1, 3 and 70
+# columns; warps that share a block's ring (B=32 and B=64 plan 2 and 5
+# warps a block); and every band edge of a full frame at B=1.
+DRIVER_EDGES = [(2, h, w) for h in (31, 32, 33, 65) for w in (1, 3, 70)] \
+    + [(32, 130, 50), (64, 300, 20), (1, 720, 1280)]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,h,w", [(2, 18, 25), (3, 130, 200), (2, 1100, 40),
-                                   (1, 4096, 8)])
+                                   (1, 4096, 8)] + DRIVER_EDGES)
 def test_dither_kernel_matches_plain(cuda_device, b, h, w):
     words = _words(h, b, h, w)
     want = sixel_kernel.fs_dither_cube_plain(words, h, w)
@@ -255,7 +335,7 @@ def test_table_kernel_reads_pitched_input(cuda_device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,h,w", [(2, 18, 25), (3, 130, 200), (2, 1100, 40),
-                                   (1, 4096, 8)])
+                                   (1, 4096, 8)] + DRIVER_EDGES)
 def test_tree_kernel_matches_plain(cuda_device, b, h, w):
     words = _words(h + 2, b, h, w)
     levels, leaves = _tree(words)
@@ -280,10 +360,13 @@ def _bytes(seed, b, h, w, c):
 # 2049 rows), and C = 4 input of which only 3 channels are read.
 RGB_SHAPES = [(2, 720, 1280, 4), (1, 726, 1280, 3), (2, 1025, 30, 3),
               (1, 2049, 12, 4), (3, 18, 25, 4)]
+# the driver's warp and band edges (DRIVER_EDGES) on bytes
+RGB_EDGES = [(b, h, w, 3) for b, h, w in DRIVER_EDGES[:-1]] \
+    + [(1, 720, 1280, 4)]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,h,w,c", RGB_SHAPES)
+@pytest.mark.parametrize("b,h,w,c", RGB_SHAPES + RGB_EDGES)
 def test_cube_rgb_kernel_matches_plain(cuda_device, b, h, w, c):
     frames = _bytes(h * c, b, h, w, c)
     want = sixel_kernel.fs_dither_cube_rgb_plain(frames, h, w)
@@ -303,7 +386,7 @@ def test_cube_rgb_kernel_matches_plain(cuda_device, b, h, w, c):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,h,w,c", RGB_SHAPES)
+@pytest.mark.parametrize("b,h,w,c", RGB_SHAPES + RGB_EDGES)
 def test_tree_rgb_kernel_matches_plain(cuda_device, b, h, w, c):
     frames = _bytes(h * c + 1, b, h, w, c)
     _, levels, leaves = median_cut_tree(frames[0, ..., :3].numpy())

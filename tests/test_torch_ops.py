@@ -135,8 +135,7 @@ def test_resize_covers_both_pass_orders():
     (2160, 3840, 16, 28)])     # 135x: no tile fits
 def test_tile_plan_covers_every_tap(h, w, oh, ow):
     if (h, w, oh, ow) == (2160, 3840, 16, 28):
-        with pytest.raises(ValueError, match="even a 1x32 tile"):
-            tresize.plan_tiles(h, w, oh, ow)
+        assert tresize.plan_tiles(h, w, oh, ow) is None
         return
     sv, tv = tresize.axis_taps(h, oh, False)
     sh, th = tresize.axis_taps(w, ow, True)

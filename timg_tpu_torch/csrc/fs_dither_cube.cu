@@ -1,4 +1,4 @@
-// Floyd-Steinberg dither with f32 error carries, one wavefront kernel
+// Floyd-Steinberg dither with f32 error carries, one wavefront driver
 // templated on its quantizer (the 6x7x6 cube or a median-cut tree) and
 // on its pixel source (pitched int32 RGBA words, or [B, H, W, C] bytes).
 //
@@ -6,27 +6,72 @@
 //   K6 fs_dither_cube_fused (_make_wavefront_kernel + _make_fs_kernel),
 //   K7 fs_dither_tree_fused (the same wavefront + _make_fs_tree_kernel),
 //   K3 _skewT, K4 _transpose_bwd and K5 _unskewT;
-// and of timg_tpu/ops/sixel_pallas.py:
+// of timg_tpu/ops/sixel_pallas.py:
 //   K9 fs_dither_cube_pallas (3-channel bytes, cube quantizer), whose
-//   XLA skew, 128-row padding and 16-column blocking are layout only.
+//   XLA skew, 128-row padding and 16-column blocking are layout only;
+// and the XLA scan timg_tpu/ops/sixel.py _fs_dither_tree_impl (the tree
+// quantizer on 3-channel bytes, the library API's adaptive mode).
 // The layout kernels existed only to give the TPU's 128-lane vector
 // unit a skewed, transposed column stream; here the skew is indexing:
-// at step t, row y handles x = t - 2y, so no layout pass runs, and rows
-// at y >= h do not exist.  The byte source reads each pixel's first
-// three channels in place (no pass packs them into words first); the
-// 3-channel tree entry is what timg_tpu/ops/sixel.py runs as an XLA scan
-// (_fs_dither_tree_impl) for the library API's adaptive mode.
+// at step t, row y handles x = t - 2y.  The byte source reads each
+// pixel's first three channels in place.
 //
-// Layout: one block per frame, one thread per row (a thread owns R = 2
-// or 4 rows when h > 1024; __launch_bounds__ keeps a 1024-thread block
-// within the SM's 65,536 registers).  Each row keeps its last
-// three error vectors e1, e2, e3 (steps t-1, t-2, t-3) in registers.
-// Row y at step t needs row y-1's mix (3/16 e1 + 5/16 e2 + 1/16 e3, i.e.
-// the errors at x+1, x, x-1 of the row above), which row y-1 computed at
-// the end of step t-1: it goes through a double-buffered shared array,
-// with one __syncthreads() per step.  Rows keep stepping after their
-// last pixel (their error is then 0), so the row below always reads the
-// settled carries.
+// What bounds it on the H100.  The recurrence is serial: row y at step t
+// needs row y-1's errors from step t-1, so a frame takes w + 2(h-1)
+// dependent steps (2,718 at 720x1280) whatever the card; the bytes (4 B
+// in, 1 B out a pixel) are a few percent of the time.  So the time is
+// steps x one step's latency, and a step's latency is set by
+//   * its dependent chain: about 15 f32 operations and one shuffle for
+//     the cube; the tree adds its descent (4 dependent shared-memory
+//     loads, below);
+//   * anything else that waits on that chain: a device-memory load, a
+//     block-wide barrier, a fence, a carry through memory;
+//   * the issue rate: a warp issues ~125 instructions a step (cube), and
+//     warps that share an SM's four schedulers add up.  Measured (PERF.md
+//     §6, PR 6), a lone warp takes 0.10-0.12 us a step and B=32 0.22-0.25:
+//     the issue rate, not the chain, is what is left.
+//
+// Layout (ops/sixel_kernel.py plan_bands says how many of each):
+//   * a warp owns 32 consecutive rows, one a lane;
+//   * a block ("band") holds `warps` consecutive warps of one frame, and
+//     a frame takes `bands` blocks, so a frame's rows spread over SMs
+//     (about 132 / B blocks a frame, of at least 4 warps);
+//   * each block takes a ticket from a per-launch counter (zeroed on the
+//     stream before the launch) and maps it to (frame, band) so that band
+//     j of a frame always has a later ticket than band j-1: a block only
+//     ever waits on a block that is already running, whatever order the
+//     hardware starts blocks in, so no cooperative launch is needed.
+// The step loop, per warp:
+//   * a warp steps only from t = 2 y_first (its first row's first pixel)
+//     to 2 y_last + w (its last row at x = w, whose mix the row below
+//     still reads), in chunks of kChunk steps unrolled so that every
+//     register ring index is a constant; a lane whose row has no pixel at
+//     a step computes with error 0;
+//   * pixels come off the chain: each lane loads its row's pixels for the
+//     next chunk while it computes this one;
+//   * no block barrier and no fence: lane i takes lane i-1's three mixes
+//     from the step before by __shfl_up_sync; lane 0 takes row
+//     y_first-1's mixes from the warp above, which lane 31 there writes a
+//     step at a time as self-validating carries (Carry below), and which
+//     lanes 0..kChunk-1 here read a chunk at a time and lane 0 takes by
+//     __shfl_sync:
+//       - inside a block, a ring of kRing steps in shared memory; the
+//         reader publishes how far it has read, and the writer waits only
+//         when the ring is full;
+//       - at a band edge, an array in device memory as long as the steps
+//         (the writer never waits);
+//       the reader loads the carries two chunks ahead and checks their
+//       flags when it reaches them (reloading a chunk that was not there
+//       yet), so the hand-off's latency, shared memory's or L2's, adds a
+//       fixed lag an edge, not a wait every chunk;
+//   * no branch inside a step: stores are predicated, so the shuffles
+//     need no reconvergence (ptxas otherwise wraps each in a collective);
+//   * carries for steps past the writer's last are never needed: they
+//     reach only lanes whose x is already past w (their error is 0);
+//   * u8 indices of a row gather into aligned 32-bit words (a byte store
+//     a step per lane would be 32 transactions a warp a step).
+// PERF.md §6 (PR 6) records the steps that led here: release/acquire
+// flags, the conversion unit and collective shuffles each cost time.
 //
 // Arithmetic is the reference's f32 sequence exactly
 // (sixel_pallas3.py:282-297, 315-330; numpy mirror sixel_np.py:132-184):
@@ -35,31 +80,53 @@
 //   cube: q = rint(v * f32((n-1)/255));  chosen = rint(q * f32(255/(n-1)))
 //   tree: chosen = the leaf color of rint(v)'s descent (TreeQuant)
 //   err = v - chosen (0 outside 0 <= x < w)
-// with __fmul_rn/__fadd_rn so nvcc cannot contract any pair into an FMA,
-// and rintf (round half to even, like jnp.round).
-//
-// Bound on the H100: latency of the serial wavefront, w + 2(h-1) steps
-// (2,718 at 720x1280), each a barrier plus ~60 dependent FLOPs per row;
-// the device-memory traffic (4 B in, 1 B out per pixel) is small; the
-// tree's 8 dependent shared-memory loads per pixel lengthen a step.  One
-// block per frame fills 32 of 132 SMs at a 32-frame window; splitting a
-// frame's rows across blocks needs cross-block carries (a later PR).
+// with __fmul_rn/__fadd_rn so nvcc cannot contract any pair into an FMA;
+// rint (round half to even, like jnp.round) is the exact x + 2^23 - 2^23
+// of the FMA pipe, and the byte <-> float steps are exact bit moves
+// (plus23 and chan below), so no conversion instruction runs.
 
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kMaxThreads = 1024;
-constexpr int kMaxRowsPerThread = 4;
+constexpr int kMaxWarps = 16;   // warps a block: 512 threads, <= 128 registers
+constexpr int kMaxRows = 4096;  // rows a frame (128 warps)
+constexpr int kChunk = 8;       // steps a chunk (ops/sixel_kernel.py CHUNK)
+constexpr int kRing = 64;       // steps a shared warp-edge ring holds
+static_assert((kRing & (kRing - 1)) == 0 && kRing > 2 * kChunk &&
+              kRing % kChunk == 0, "ring");
+static_assert(64 % kChunk == 0, "warps' chunks must align across edges");
 
-__device__ __forceinline__ float chan(int32_t word, int c) {
-  return (float)((word >> (8 * c)) & 0xFF);
+constexpr float kTwo23 = 8388608.0f;
+
+// Exact integer <-> float steps without the conversion unit (whose rate
+// is a quarter of the FMA pipe's and whose latency sits on the chain):
+// byte c of a word, as a float: the byte placed under the exponent of
+// 2^23, minus 2^23.
+__device__ __forceinline__ float chan(uint32_t word, int c) {
+  const uint32_t w23 = __byte_perm(word, 0x4B000000u, 0x7440 | c);
+  return __fsub_rn(__uint_as_float(w23), kTwo23);
 }
 
-// Quantizers of the f32 wavefront.  Each maps a clipped f32 value v[3] to
-// a palette index and the palette color (as f32) the error is taken
-// against; `load` stages its tables in shared memory before the steps.
+// x + 2^23 for 0 <= x < 2^22: x rounded to an integer, half to even (as
+// rintf and jnp.round), held in the low mantissa bits; rint23 takes it
+// back to a float (exactly), int23 to an int.
+__device__ __forceinline__ float plus23(float x) {
+  return __fadd_rn(x, kTwo23);
+}
+__device__ __forceinline__ float rint23(float t) {
+  return __fsub_rn(t, kTwo23);
+}
+__device__ __forceinline__ int int23(float t) {
+  return __float_as_int(t) - 0x4B000000;
+}
+
+// Quantizers of the f32 wavefront.  Each maps a clipped f32 value
+// 0 <= v[3] <= 255 to a palette index and the palette color (as f32) the
+// error is taken against; `load` stages its tables in shared memory
+// before the steps.
 
 // K6's 6x7x6 cube: q = rint(v * (n-1)/255), color = rint(q * 255/(n-1)).
 struct CubeQuant {
@@ -74,9 +141,11 @@ struct CubeQuant {
     int idx = 0;
 #pragma unroll
     for (int c = 0; c < 3; ++c) {
-      const float q = rintf(__fmul_rn(v[c], step[c]));
-      color[c] = rintf(__fmul_rn(q, inv[c]));
-      idx = idx * (c == 1 ? 7 : 6) + (int)q;
+      const float q = plus23(__fmul_rn(v[c], step[c]));
+      // q * 51 is an exact integer (red, blue): its rint is itself
+      const float qc = __fmul_rn(rint23(q), inv[c]);
+      color[c] = c == 1 ? rint23(plus23(qc)) : qc;
+      idx = idx * (c == 1 ? 7 : 6) + int23(q);
     }
     return idx;
   }
@@ -86,55 +155,68 @@ struct CubeQuant {
 // median_cut_tree): levels[d][node] = axis << 8 | thr, descend right
 // iff rint(v[axis]) > thr; leaves[node] = idx << 24 | r << 16 | g << 8 | b.
 // The TPU folded pairs of levels into 4-way tables (_quad_tables) for its
-// lane gather; the partition is the same, so this descends the binary
-// levels from shared memory.
+// lane gather.  Here `load` turns each node into a pair {mask, thr'} =
+// {0xFF << 8 axis, thr << 8 axis} in shared memory, so that a node's test
+// on the packed rint(v) bytes q is one AND and one compare, (q & mask) >
+// thr'; the descent takes two levels a round, loading a node and both its
+// children together, so 4 dependent shared-memory loads pick the leaf
+// instead of 8.  The partition is the same.
 constexpr int kTreeDepth = 8;
 constexpr int kTreeLevelNodes = 128;
 
 struct TreeQuant {
-  static constexpr int kTableInts = kTreeDepth * kTreeLevelNodes
+  static constexpr int kTableInts = 2 * kTreeDepth * kTreeLevelNodes
                                     + (1 << kTreeDepth);
   const int32_t* levels;  // [8, 128] in device memory
   const int32_t* leaves;  // [256]
   __device__ __forceinline__ void load(int* tab, int tid, int nth) const {
-    for (int i = tid; i < kTreeDepth * kTreeLevelNodes; i += nth)
-      tab[i] = levels[i];
+    for (int i = tid; i < kTreeDepth * kTreeLevelNodes; i += nth) {
+      const int word = levels[i], shift = 8 * min(word >> 8, 2);
+      tab[2 * i] = 0xFF << shift;
+      tab[2 * i + 1] = (word & 0xFF) << shift;
+    }
     for (int i = tid; i < (1 << kTreeDepth); i += nth)
-      tab[kTreeDepth * kTreeLevelNodes + i] = leaves[i];
+      tab[2 * kTreeDepth * kTreeLevelNodes + i] = leaves[i];
   }
   __device__ __forceinline__ int quantize(const int* tab, const float v[3],
                                           float color[3]) const {
-    const float vq[3] = {rintf(v[0]), rintf(v[1]), rintf(v[2])};
+    // rint(v[c]) sits in the low byte of plus23(v[c]) (its next two bytes
+    // are 0): pack the three as q = r | g << 8 | b << 16
+    const uint32_t r = __float_as_uint(plus23(v[0]));
+    const uint32_t g = __float_as_uint(plus23(v[1]));
+    const uint32_t b = __float_as_uint(plus23(v[2]));
+    const int q = (int)__byte_perm(__byte_perm(r, g, 0x2240), b, 0x2410);
+    const int2* nodes = reinterpret_cast<const int2*>(tab);
     int node = 0;
 #pragma unroll
-    for (int d = 0; d < kTreeDepth; ++d) {
-      const int word = tab[d * kTreeLevelNodes + node];
-      const int axis = word >> 8;
-      const float comp = axis == 0 ? vq[0] : (axis == 1 ? vq[1] : vq[2]);
-      node = node * 2 + (comp > (float)(word & 0xFF) ? 1 : 0);
+    for (int d = 0; d < kTreeDepth; d += 2) {
+      const int2 a = nodes[d * kTreeLevelNodes + node];
+      const int4 kids = reinterpret_cast<const int4*>(
+          nodes + (d + 1) * kTreeLevelNodes)[node];
+      const int right = (q & a.x) > a.y;
+      const int2 kid = right ? make_int2(kids.z, kids.w)
+                             : make_int2(kids.x, kids.y);
+      node = 4 * node + 2 * right + ((q & kid.x) > kid.y);
     }
-    const int leaf = tab[kTreeDepth * kTreeLevelNodes + node];
-    color[0] = (float)((leaf >> 16) & 0xFF);
-    color[1] = (float)((leaf >> 8) & 0xFF);
-    color[2] = (float)(leaf & 0xFF);
-    return (leaf >> 24) & 0xFF;
+    const uint32_t leaf = tab[2 * kTreeDepth * kTreeLevelNodes + node];
+    color[0] = chan(leaf, 2);
+    color[1] = chan(leaf, 1);
+    color[2] = chan(leaf, 0);
+    return leaf >> 24;
   }
 };
 
-// Pixel sources: how a pixel of [B, pitch_h, pitch_w] elements of
-// ``stride`` bytes becomes one RGB word (r | g << 8 | b << 16).  They hold
-// no data: the kernel takes the base pointer and the pitches as plain
-// parameters, as K6 did before the source became a template parameter.
-// A source passed as a struct, or loaded as three floats, spilled 4-28
-// bytes at 4 rows a thread (ptxas); this form spills nowhere for words
-// and only in the byte tree at 2 rows a thread (16 bytes).
+// Pixel sources: how element i of a row of ``stride``-byte elements
+// becomes one RGB word (r | g << 8 | b << 16).  They hold no data: the
+// kernel takes the base pointer and the pitches as plain parameters (a
+// source passed as a struct spilled in PR 3's kernel).
 
 // int32 RGBA words (K6/K7's input); stride 4, known at compile time.
 struct WordPixels {
   static constexpr int kStride = 4;
-  __device__ __forceinline__ static int32_t load(const uint8_t* frame,
-                                                 int64_t i, int) {
-    return reinterpret_cast<const int32_t*>(frame)[i];
+  __device__ __forceinline__ static int32_t load(const uint8_t* row, int x,
+                                                 int) {
+    return reinterpret_cast<const int32_t*>(row)[x];
   }
 };
 
@@ -142,72 +224,236 @@ struct WordPixels {
 // third are never read.  The stride comes at run time.
 struct RgbPixels {
   static constexpr int kStride = 0;
-  __device__ __forceinline__ static int32_t load(const uint8_t* frame,
-                                                 int64_t i, int stride) {
-    const uint8_t* p = frame + i * stride;
+  __device__ __forceinline__ static int32_t load(const uint8_t* row, int x,
+                                                 int stride) {
+    const uint8_t* p = row + (int64_t)x * stride;
     return (int32_t)p[0] | ((int32_t)p[1] << 8) | ((int32_t)p[2] << 16);
   }
 };
 
-template <typename Pixels, typename Quant, typename OutT, int R>
-__global__ void __launch_bounds__(kMaxThreads)
-fs_dither_f32(const uint8_t* __restrict__ pixels, int h, int w,
+// Carries between warps, with no fence: each step's three mixes travel as
+// two 16-byte words {m0, f, m1, f} and {m2, f, 0, f} whose flag f is the
+// step + 1.  An aligned 8-byte half is written whole, so a reader that
+// finds the flag beside a value has that step's value (the scheme of
+// NCCL's low-latency protocol); the buffers start zeroed (flag 0).
+struct Carry {
+  uint4 a, b;
+};
+
+// Loads into v if `on` (else v keeps its value); predicated, as below.
+__device__ __forceinline__ void ld_volatile(const uint4* p, uint4& v,
+                                            bool on) {
+  asm volatile("{\n\t.reg .pred p;\n\tsetp.ne.b32 p, %5, 0;\n\t"
+               "@p ld.volatile.v4.u32 {%0, %1, %2, %3}, [%4];\n\t}"
+               : "+r"(v.x), "+r"(v.y), "+r"(v.z), "+r"(v.w)
+               : "l"(p), "r"((int)on));
+}
+
+// Stores v if `on`, predicated inside the asm: no branch around it, so
+// the warp stays converged for the shuffles of the step loop.
+__device__ __forceinline__ void st_volatile(uint4* p, uint4 v, bool on) {
+  asm volatile("{\n\t.reg .pred p;\n\tsetp.ne.b32 p, %5, 0;\n\t"
+               "@p st.volatile.v4.u32 [%0], {%1, %2, %3, %4};\n\t}"
+               ::"l"(p), "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w),
+               "r"((int)on));
+}
+
+__device__ __forceinline__ int ld_volatile(const int* p) {
+  int v;
+  asm volatile("ld.volatile.b32 %0, [%1];" : "=r"(v) : "l"(p));
+  return v;
+}
+
+__device__ __forceinline__ void st_volatile(int* p, int v) {
+  asm volatile("st.volatile.b32 [%0], %1;" ::"l"(p), "r"(v));
+}
+
+// Where a warp's top carries come from and its bottom carries go.
+enum Edge { kNone = 0, kShared = 1, kGlobal = 2 };
+
+// One launch: frames [b] of h x w, as b * bands blocks of warps * 32
+// threads.  sync[0] is the ticket counter; edges [b][bands-1][edge_len]
+// the carries of band j's last warp of frame f, by step (zeroed).
+template <typename Pixels, typename Quant, typename OutT>
+__global__ void __launch_bounds__(kMaxWarps * 32)
+fs_dither_f32(const uint8_t* __restrict__ pixels, int b, int h, int w,
               int pitch_h, int pitch_w, int stride, Quant quant,
-              OutT* __restrict__ out) {
-  extern __shared__ int smem[];  // [Quant::kTableInts] tables, [2][3][h] mix
+              OutT* __restrict__ out, int bands, int* sync, Carry* edges,
+              int edge_len) {
+  // [Quant::kTableInts] tables, then per warp k the ring of its top edge
+  // [kRing] Carry, then per warp k the steps it has read from that ring
+  extern __shared__ __align__(16) int smem[];
+  __shared__ int ticket;
+  const int warps = blockDim.x / 32, warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
   int* tab = smem;
-  float* mixbuf = reinterpret_cast<float*>(smem + Quant::kTableInts);
-  const int b = blockIdx.x;
-  const int nth = blockDim.x;
+  Carry* rings = reinterpret_cast<Carry*>(smem + Quant::kTableInts);
+  int* consumed = reinterpret_cast<int*>(rings + warps * kRing);
+  if (threadIdx.x == 0) ticket = atomicAdd(sync, 1);
+  quant.load(tab, threadIdx.x, blockDim.x);
+  for (int i = threadIdx.x; i < warps * kRing * 8; i += blockDim.x)
+    reinterpret_cast<int*>(rings)[i] = 0;
+  __syncthreads();
+  const int band = ticket / b, f = ticket % b;
+  const int y0 = (band * warps + warp) * 32;  // the warp's first row
+  if (lane == 0) consumed[warp] = 2 * y0 - 1;  // the first step it reads
+  __syncthreads();
+  if (y0 >= h) return;
   if (Pixels::kStride) stride = Pixels::kStride;
-  const uint8_t* src = pixels + (int64_t)b * pitch_h * pitch_w * stride;
-  OutT* dst = out + (int64_t)b * h * w;
+  // 4-channel bytes on 4-byte boundaries load as one word a pixel
+  const bool as_words = !Pixels::kStride && stride == 4 &&
+                        ((uintptr_t)pixels & 3) == 0;
+
+  const int y = y0 + lane;
+  const bool row_ok = y < h;
+  const int row_w = row_ok ? w : 0;       // x < row_w: a pixel of the row
+  const int t_begin = 2 * y0;
+  const int t_stop = 2 * min(y0 + 31, h - 1) + w + 1;
+  const int prod_stop = t_begin - 1 + w;  // the warp above's t_stop
+  const int64_t row = (int64_t)f * h + (row_ok ? y : 0);
+  const uint8_t* src = pixels
+      + ((int64_t)f * pitch_h + (row_ok ? y : 0)) * pitch_w * stride;
+  OutT* dst = out + row * w;
+  const int skew = (int)(row * w & 3);    // u8 out: the row's first byte % 4
+
+  // the top edge: none (row 0), the ring of warp-1, or band-1's array;
+  // the bottom edge: none (no row below), ring warp+1, or band+1's array
+  const Edge top = y0 == 0 ? kNone : (warp == 0 ? kGlobal : kShared);
+  const Edge sink = y0 + 32 >= h ? kNone
+                                 : (warp == warps - 1 ? kGlobal : kShared);
+  const Carry* top_src = top == kGlobal
+      ? edges + (int64_t)(f * (bands - 1) + band - 1) * edge_len
+      : rings + warp * kRing;
+  const int top_mask = top == kGlobal ? -1 : kRing - 1;  // step -> slot
+  Carry* out_dst = sink == kGlobal
+      ? edges + (int64_t)(f * (bands - 1) + band) * edge_len
+      : rings + (warp + 1) * kRing;
+  const int out_mask = sink == kGlobal ? -1 : kRing - 1;
+  const int sink_len = sink == kGlobal ? edge_len : INT_MAX;
 
   const float c7 = 7.0f / 16.0f, c5 = 5.0f / 16.0f;
   const float c3 = 3.0f / 16.0f, c1 = 1.0f / 16.0f;
+  float e1[3], e2[3], e3[3], up[3], above[3];
+#pragma unroll
+  for (int c = 0; c < 3; ++c) e1[c] = e2[c] = e3[c] = up[c] = above[c] = 0;
+  int32_t pa[kChunk], pb[kChunk];  // this lane's pixels, two chunks
+  Carry ra = {}, rb = {};          // lane k < kChunk: a top carry, raw
+  uint32_t packed = 0;             // u8 out: bytes of the current word
+  int seen_out = 0;
 
-  float e1[R][3], e2[R][3], e3[R][3];
+  // Lane k < kChunk loads the top carry of step s0 + k (no wait: the
+  // flags say later whether it was there yet).
+  auto issue = [&](Carry& r, int s0) {
+    const int s = s0 + lane;
+    const bool on = lane < kChunk && (top == kShared || s < edge_len);
+    ld_volatile(&top_src[s & top_mask].a, r.a, on);
+    ld_volatile(&top_src[s & top_mask].b, r.b, on);
+  };
+  // Wait until every lane k < kChunk holds the carry of step s0 + k
+  // (steps from the producer's last on are never needed), then unpack it
+  // into `above`; a ring's reader then frees the chunk's slots.
+  auto settle = [&](Carry& r, int s0) {
+    const int s = s0 + lane;
+    const unsigned f1 = s + 1;
+    auto ok = [&] {
+      return lane >= kChunk || s >= prod_stop ||
+             (r.a.y == f1 && r.a.w == f1 && r.b.y == f1 && r.b.w == f1);
+    };
+    while (!__all_sync(0xffffffffu, ok())) issue(r, s0);
+    above[0] = __uint_as_float(r.a.x);
+    above[1] = __uint_as_float(r.a.z);
+    above[2] = __uint_as_float(r.b.x);
+    if (top == kShared && lane == 0)
+      st_volatile(&consumed[warp], s0 + kChunk);
+  };
+  auto load_pixels = [&](int32_t (&p)[kChunk], int t0) {
 #pragma unroll
-  for (int k = 0; k < R; ++k)
-#pragma unroll
-    for (int c = 0; c < 3; ++c) e1[k][c] = e2[k][c] = e3[k][c] = 0.0f;
-  for (int i = threadIdx.x; i < 2 * 3 * h; i += nth) mixbuf[i] = 0.0f;
-  quant.load(tab, threadIdx.x, nth);
-  __syncthreads();
+    for (int k = 0; k < kChunk; ++k) {
+      const int x = t0 + k - 2 * y;
+      p[k] = (unsigned)x >= (unsigned)row_w ? 0
+             : as_words ? WordPixels::load(src, x, 4)
+                        : Pixels::load(src, x, stride);
+    }
+  };
 
-  const int n_steps = w + 2 * (h - 1);
-  for (int t = 0; t < n_steps; ++t) {
-    const float* mix_in = mixbuf + (t & 1) * 3 * h;
-    float* mix_out = mixbuf + ((t + 1) & 1) * 3 * h;
+  // the top carries are loaded two chunks ahead, while the chunk before
+  // computes, and checked when reached: the hand-off's latency then adds
+  // a fixed lag an edge instead of a wait every chunk
+  load_pixels(pa, t_begin);
+  if (top != kNone) {
+    issue(ra, t_begin - 1);
+    issue(rb, t_begin + kChunk - 1);
+  }
+  // two chunks an iteration, so that the register rings swap roles at
+  // compile time: a chunk of steps t0 .. t0 + kChunk - 1 runs from pixels
+  // p and top carries r, and fetches the next chunk's pixels into np
+  for (int t2 = t_begin; t2 < t_stop; t2 += 2 * kChunk)
 #pragma unroll
-    for (int k = 0; k < R; ++k) {
-      const int y = threadIdx.x + k * nth;
-      if (y >= h) break;
-      const int x = t - 2 * y;
-      const bool valid = x >= 0 && x < w;
-      const int32_t word =
-          valid ? Pixels::load(src, (int64_t)y * pitch_w + x, stride) : 0;
-      float v[3], color[3];
-#pragma unroll
-      for (int c = 0; c < 3; ++c) {
-        const float up = y == 0 ? 0.0f : mix_in[c * h + y - 1];
-        const float incoming = __fadd_rn(__fmul_rn(e1[k][c], c7), up);
-        v[c] = fminf(fmaxf(__fadd_rn(chan(word, c), incoming), 0.0f), 255.0f);
+    for (int half = 0; half < 2; ++half) {
+      const int t0 = t2 + half * kChunk;
+      auto& r = half ? rb : ra;
+      auto& p = half ? pb : pa;
+      auto& np = half ? pa : pb;
+      if (top != kNone) {
+        settle(r, t0 - 1);
+        issue(r, t0 + 2 * kChunk - 1);
       }
-      const int idx = quant.quantize(tab, v, color);
-      if (valid) dst[(int64_t)y * w + x] = (OutT)idx;
+      load_pixels(np, t0 + kChunk);
+      if (sink == kShared) {  // the ring's slots for this chunk must be free
+        while (seen_out < t0 + kChunk - kRing)
+          seen_out = __shfl_sync(0xffffffffu,
+                                 ld_volatile(&consumed[warp + 1]), 31);
+      }
+      // a chunk's slots are consecutive (kRing is a multiple of kChunk)
+      Carry* out_chunk = &out_dst[t0 & out_mask];
 #pragma unroll
-      for (int c = 0; c < 3; ++c) {
-        e3[k][c] = e2[k][c];
-        e2[k][c] = e1[k][c];
-        e1[k][c] = valid ? __fsub_rn(v[c], color[c]) : 0.0f;
-        mix_out[c * h + y] = __fadd_rn(
-            __fadd_rn(__fmul_rn(e1[k][c], c3), __fmul_rn(e2[k][c], c5)),
-            __fmul_rn(e3[k][c], c1));
+      for (int k = 0; k < kChunk; ++k) {
+        const int t = t0 + k, x = t - 2 * y;
+        const bool valid = (unsigned)x < (unsigned)row_w;
+        float v[3], color[3];
+#pragma unroll
+        for (int c = 0; c < 3; ++c) {
+          const float top_mix = __shfl_sync(0xffffffffu, above[c], k);
+          const float in = __fadd_rn(__fmul_rn(e1[c], c7),
+                                     lane == 0 ? top_mix : up[c]);
+          v[c] = fminf(fmaxf(__fadd_rn(chan(p[k], c), in), 0.0f), 255.0f);
+        }
+        const int idx = quant.quantize(tab, v, color);
+        if constexpr (sizeof(OutT) == 1) {
+          // bytes of a row gather into aligned words; a word that is not
+          // all inside the row (its ends) is stored a byte at a time
+          const int pos = (skew + x) & 3;
+          packed = pos == 0 ? (uint32_t)idx
+                            : packed | ((uint32_t)idx << (8 * pos));
+          const bool inside = x >= pos && x + 3 - pos < w;
+          if (valid && inside && pos == 3)
+            *reinterpret_cast<uint32_t*>(dst + x - 3) = packed;
+          if (valid && !inside) dst[x] = (OutT)idx;
+        } else {
+          if (valid) dst[x] = (OutT)idx;
+        }
+        float mix[3];
+#pragma unroll
+        for (int c = 0; c < 3; ++c) {
+          e3[c] = e2[c];
+          e2[c] = e1[c];
+          e1[c] = valid ? __fsub_rn(v[c], color[c]) : 0.0f;
+          mix[c] = __fadd_rn(__fadd_rn(__fmul_rn(e1[c], c3),
+                                       __fmul_rn(e2[c], c5)),
+                             __fmul_rn(e3[c], c1));
+          up[c] = __shfl_up_sync(0xffffffffu, mix[c], 1);
+        }
+        // lane 31 hands its mixes to the warp below (a ring's slot or the
+        // band edge's array; sink_len bounds the array)
+        const unsigned f1 = t + 1;
+        const bool hand = lane == 31 && sink != kNone && t < sink_len;
+        Carry* c = out_chunk + k;
+        st_volatile(&c->a, make_uint4(__float_as_uint(mix[0]), f1,
+                                      __float_as_uint(mix[1]), f1), hand);
+        st_volatile(&c->b, make_uint4(__float_as_uint(mix[2]), f1, 0u, f1),
+                    hand);
       }
     }
-    __syncthreads();
-  }
 }
 
 // The pixel source of a launch: base pointer, pitches, element stride.
@@ -216,69 +462,78 @@ struct Source {
   int pitch_h, pitch_w, stride;
 };
 
-template <typename Pixels, typename Quant, typename OutT, int R>
-int launch_rows(Source src, int b, int h, int w, Quant quant, OutT* out,
-                cudaStream_t stream) {
-  const int rows = (h + R - 1) / R;
-  const int threads = (rows + 31) / 32 * 32;
-  const size_t smem = (size_t)Quant::kTableInts * sizeof(int)
-                      + (size_t)2 * 3 * h * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      fs_dither_f32<Pixels, Quant, OutT, R>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  fs_dither_f32<Pixels, Quant, OutT, R><<<b, threads, smem, stream>>>(
-      (const uint8_t*)src.pixels, h, w, src.pitch_h, src.pitch_w, src.stride,
-      quant, out);
-  return (int)cudaGetLastError();
-}
+// The band plan of a launch (ops/sixel_kernel.py plan_bands) and its
+// scratch, zeroed on the stream: sync [1] int32, the ticket counter, and
+// edges [b * (bands-1) * edge_len] Carry (unused when bands == 1).
+struct Bands {
+  int bands, warps;
+  void* sync;
+  void* edges;
+  int edge_len;
+};
 
 template <typename Pixels, typename Quant, typename OutT>
 int launch(Source src, int b, int h, int w, Quant quant, OutT* out,
-           cudaStream_t stream) {
+           Bands plan, cudaStream_t stream) {
   if (b <= 0 || h <= 0 || w <= 0) return 0;
-  if (h <= kMaxThreads)
-    return launch_rows<Pixels, Quant, OutT, 1>(src, b, h, w, quant, out,
-                                               stream);
-  if (h <= 2 * kMaxThreads)
-    return launch_rows<Pixels, Quant, OutT, 2>(src, b, h, w, quant, out,
-                                               stream);
-  if (h <= kMaxRowsPerThread * kMaxThreads)
-    return launch_rows<Pixels, Quant, OutT, kMaxRowsPerThread>(
-        src, b, h, w, quant, out, stream);
-  return (int)cudaErrorInvalidValue;
+  const int rows = plan.bands * plan.warps * 32;
+  if (h > kMaxRows || plan.warps < 1 || plan.warps > kMaxWarps ||
+      plan.bands < 1 || rows < h || rows - plan.warps * 32 >= h ||
+      plan.sync == nullptr ||
+      (plan.bands > 1 &&
+       (plan.edges == nullptr || plan.edge_len < w + 2 * h + 4 * kChunk)))
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)Quant::kTableInts * sizeof(int)
+                      + (size_t)plan.warps * (kRing * sizeof(Carry)
+                                              + sizeof(int));
+  fs_dither_f32<Pixels, Quant, OutT>
+      <<<b * plan.bands, plan.warps * 32, smem, stream>>>(
+          (const uint8_t*)src.pixels, b, h, w, src.pitch_h, src.pitch_w,
+          src.stride, quant, out, plan.bands, (int*)plan.sync,
+          (Carry*)plan.edges, plan.edge_len);
+  return (int)cudaGetLastError();
 }
 
 template <typename Pixels, typename Quant>
 int launch_out(Source src, int b, int h, int w, Quant quant, void* out,
-               int out_u8, void* stream) {
+               int out_u8, Bands plan, void* stream) {
   if (out_u8)
-    return launch<Pixels>(src, b, h, w, quant, (uint8_t*)out,
+    return launch<Pixels>(src, b, h, w, quant, (uint8_t*)out, plan,
                           (cudaStream_t)stream);
-  return launch<Pixels>(src, b, h, w, quant, (int32_t*)out,
+  return launch<Pixels>(src, b, h, w, quant, (int32_t*)out, plan,
                         (cudaStream_t)stream);
 }
 
 }  // namespace
 
+// Each entry takes, after its data arguments, the band plan: bands and
+// warps (ops/sixel_kernel.py plan_bands), sync and edges (scratch as in
+// Bands above) and edge_len (>= w + 2h + 32).
+//
 // words: [b, pitch_h, pitch_w] int32 RGBA words, valid extent h x w.
 // out: [b, h, w] uint8 (out_u8) or int32 palette indices.
 extern "C" int timg_fs_dither_cube(const void* words, int b, int h, int w,
                                    int pitch_h, int pitch_w, void* out,
-                                   int out_u8, void* stream) {
+                                   int out_u8, int bands, int warps,
+                                   void* sync, void* edges, int edge_len,
+                                   void* stream) {
   return launch_out<WordPixels>(Source{words, pitch_h, pitch_w, 4}, b, h, w,
-                                CubeQuant{}, out, out_u8, stream);
+                                CubeQuant{}, out, out_u8,
+                                Bands{bands, warps, sync, edges, edge_len},
+                                stream);
 }
 
 // levels: [8, 128] int32, leaves: [256] int32 (one tree for the batch).
 extern "C" int timg_fs_dither_tree(const void* words, int b, int h, int w,
                                    int pitch_h, int pitch_w,
                                    const void* levels, const void* leaves,
-                                   void* out, int out_u8, void* stream) {
+                                   void* out, int out_u8, int bands,
+                                   int warps, void* sync, void* edges,
+                                   int edge_len, void* stream) {
   return launch_out<WordPixels>(
       Source{words, pitch_h, pitch_w, 4}, b, h, w,
       TreeQuant{(const int32_t*)levels, (const int32_t*)leaves}, out, out_u8,
-      stream);
+      Bands{bands, warps, sync, edges, edge_len}, stream);
 }
 
 // rgb: [b, pitch_h, pitch_w, channels] uint8 (channels >= 3), valid
@@ -286,24 +541,33 @@ extern "C" int timg_fs_dither_tree(const void* words, int b, int h, int w,
 extern "C" int timg_fs_dither_cube_rgb(const void* rgb, int b, int h, int w,
                                        int pitch_h, int pitch_w,
                                        int channels, void* out, int out_u8,
+                                       int bands, int warps, void* sync,
+                                       void* edges, int edge_len,
                                        void* stream) {
   if (channels < 3) return (int)cudaErrorInvalidValue;
   return launch_out<RgbPixels>(Source{rgb, pitch_h, pitch_w, channels}, b, h,
-                               w, CubeQuant{}, out, out_u8, stream);
+                               w, CubeQuant{}, out, out_u8,
+                               Bands{bands, warps, sync, edges, edge_len},
+                               stream);
 }
 
 extern "C" int timg_fs_dither_tree_rgb(const void* rgb, int b, int h, int w,
                                        int pitch_h, int pitch_w,
                                        int channels, const void* levels,
                                        const void* leaves, void* out,
-                                       int out_u8, void* stream) {
+                                       int out_u8, int bands, int warps,
+                                       void* sync, void* edges, int edge_len,
+                                       void* stream) {
   if (channels < 3) return (int)cudaErrorInvalidValue;
   return launch_out<RgbPixels>(
       Source{rgb, pitch_h, pitch_w, channels}, b, h, w,
       TreeQuant{(const int32_t*)levels, (const int32_t*)leaves}, out, out_u8,
-      stream);
+      Bands{bands, warps, sync, edges, edge_len}, stream);
 }
 
-extern "C" int timg_fs_dither_cube_max_rows() {
-  return kMaxThreads * kMaxRowsPerThread;
-}
+extern "C" int timg_fs_dither_cube_max_rows() { return kMaxRows; }
+
+// Warps a block at most, and steps a chunk (checked by the wrapper
+// against ops/sixel_kernel.py MAX_WARPS and CHUNK).
+extern "C" int timg_fs_dither_max_warps() { return kMaxWarps; }
+extern "C" int timg_fs_dither_chunk() { return kChunk; }

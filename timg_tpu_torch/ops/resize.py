@@ -173,19 +173,22 @@ def tile_smem_bytes(*args) -> int:
 
 
 @functools.lru_cache(maxsize=64)
-def plan_tiles(in_h: int, in_w: int, out_h: int, out_w: int) -> TilePlan:
-    """Tile size and first-pass windows of the fused resize.
+def plan_tiles(in_h: int, in_w: int, out_h: int,
+               out_w: int) -> "TilePlan | None":
+    """Tile size and first-pass windows of the fused resize, or None
+    where no tile fits (the geometry then takes the two-pass kernels of
+    csrc/resize_passes.cu).
 
     Among the tiles whose shared memory fits ``SMEM_PREFERRED``, the one
     with the fewest first-pass points and staged words per output word
     (least halo), the larger on a tie; where none fits, the smallest
-    tile if it fits ``SMEM_MAX``.  Raises ``ValueError`` where even a
-    1 x 32 tile does not.  The band spans about 4 inputs per output
+    tile if it fits ``SMEM_MAX``; None where even a 1 x 32 tile does
+    not.  The band spans about 4 inputs per output
     step, so a 1 x 32 tile holds 33 bands of taps (8 bytes each) and a
     mid tile of one band by 32 columns (horizontal-first) or 31 steps
     plus a band (vertical-first), 4 bytes a channel: it stops fitting
-    near a 90x downscale of both axes (2160x3840 -> 16x28, 135x,
-    raises; 1080x1920 -> 16x28, 68x, fits)."""
+    near a 90x downscale of both axes (2160x3840 -> 16x28, 135x, and
+    1080x1920 -> 12x20: None; 1080x1920 -> 16x28, 68x, fits)."""
     vfirst = vertical_first(in_h, in_w, out_h, out_w)
     sv, tv = axis_taps(in_h, out_h, False)
     sh, th = axis_taps(in_w, out_w, True)
@@ -211,12 +214,7 @@ def plan_tiles(in_h: int, in_w: int, out_h: int, out_w: int) -> TilePlan:
                 smallest = plan
     if best is not None:
         return best[1]
-    if smallest.smem_bytes <= SMEM_MAX:
-        return smallest
-    raise ValueError(
-        f"resize {in_h}x{in_w} -> {out_h}x{out_w}: even a "
-        f"{smallest.rows}x{smallest.cols} tile needs "
-        f"{smallest.smem_bytes} bytes of shared memory (at most {SMEM_MAX})")
+    return smallest if smallest.smem_bytes <= SMEM_MAX else None
 
 
 def padded_plane_dims(out_h: int, out_w: int) -> tuple:
@@ -252,13 +250,13 @@ def _apply_taps(x: torch.Tensor, dim: int, starts: torch.Tensor,
     return total + (even + odd)
 
 
-def resize_video_words_plain(words: torch.Tensor, out_h: int, out_w: int,
-                             taps_v=None, taps_h=None) -> torch.Tensor:
+def resize_video_words_plain(words: torch.Tensor, out_h: int,
+                             out_w: int) -> torch.Tensor:
     """Plain PyTorch version: [B, H, W] int32 RGBA words ->
     [B, out_h, out_w] int32 words with alpha 255."""
     b, in_h, in_w = words.shape
-    sv, tv = taps_v if taps_v is not None else axis_taps(in_h, out_h, False)
-    sh, th = taps_h if taps_h is not None else axis_taps(in_w, out_w, True)
+    sv, tv = axis_taps(in_h, out_h, False)
+    sh, th = axis_taps(in_w, out_w, True)
     planes = torch.stack([((words >> (8 * c)) & 0xFF).to(torch.float32)
                           for c in range(3)], dim=1)       # [B, 3, H, W]
     if vertical_first(in_h, in_w, out_h, out_w):
@@ -273,23 +271,20 @@ def resize_video_words_plain(words: torch.Tensor, out_h: int, out_w: int,
     return v[:, 0] | (v[:, 1] << 8) | (v[:, 2] << 16) | -(1 << 24)
 
 
-def resize_video_words(words: torch.Tensor, out_h: int, out_w: int,
-                       taps_v=None, taps_h=None) -> torch.Tensor:
+def resize_video_words(words: torch.Tensor, out_h: int,
+                       out_w: int) -> torch.Tensor:
     """[B, H, W] int32 RGBA words -> [B, out_h, out_w] int32 words.
 
-    A CUDA tensor goes through the hand-written kernel
-    (ops/resize_kernel.py), a CPU tensor through the plain version.
-    ``taps_v``/``taps_h`` are (starts, taps) tables already on the
-    tensor's device (the video stage module holds them as buffers);
-    they default to ``axis_taps`` for the geometry."""
+    A CUDA tensor goes through the hand-written kernels
+    (ops/resize_kernel.py), a CPU tensor through the plain version; both
+    take the geometry's ``axis_taps``."""
     in_h, in_w = words.shape[1], words.shape[2]
     if (in_h, in_w) == (out_h, out_w):
         return words
     if words.is_cuda:
         from timg_tpu_torch.ops import resize_kernel
-        return resize_kernel.resize_video_words_cuda(
-            words, out_h, out_w, taps_v, taps_h)
-    return resize_video_words_plain(words, out_h, out_w, taps_v, taps_h)
+        return resize_kernel.resize_video_words_cuda(words, out_h, out_w)
+    return resize_video_words_plain(words, out_h, out_w)
 
 
 # --------------------------------------------------------------------------

@@ -1,12 +1,17 @@
-"""Wrapper of the CUDA video resize kernel (csrc/resize_words.cu).
+"""Wrappers of the CUDA video resize kernels (csrc/resize_words.cu and
+csrc/resize_passes.cu).
 
-Replaces the TPU kernels of timg_tpu/ops/resize_pallas.py:
+Replace the TPU kernels of timg_tpu/ops/resize_pallas.py:
 ``resize_video_words_pallas`` (K1) and ``resize_video_words_pallas_tiled``
 (K2).  One launch a resize: both separable passes in one tile kernel
 whose bf16-rounded intermediate stays in shared memory, tiled as
 ``ops/resize.plan_tiles`` says; only the output is allocated here.
-Bound by device-memory bytes on the H100 (see the source's note).  The
-plain version is ``ops/resize.resize_video_words_plain``.
+Where no tile fits (``plan_tiles`` returns None, near a 90x downscale of
+both axes), the two-pass kernels of csrc/resize_passes.cu run instead,
+through a bf16 intermediate in device memory.  Both read the tap tables
+that this module caches on the device per geometry; no caller passes
+tables.  Bound by device-memory bytes on the H100 (see the sources'
+notes).  The plain version is ``ops/resize.resize_video_words_plain``.
 """
 
 from __future__ import annotations
@@ -17,9 +22,10 @@ import functools
 import torch
 
 from timg_tpu_torch.ops import _build
-from timg_tpu_torch.ops.resize import axis_taps, plan_tiles
+from timg_tpu_torch.ops.resize import axis_taps, plan_tiles, vertical_first
 
-LAUNCHES = 0   # kernel launches (one per resize)
+LAUNCHES = 0        # fused tile kernel launches (one per resize)
+PASS_LAUNCHES = 0   # two-pass route launches (both passes of one resize)
 
 _bound = None
 
@@ -32,41 +38,32 @@ def _lib():
         lib.timg_resize_words.argtypes = [p, i, i, i, p, p, i, i, p, p, i,
                                           i, i, i, i, p, p, i, i, i, p, p]
         lib.timg_resize_words.restype = ctypes.c_int
+        for fn in (lib.timg_resize_words_to_mid, lib.timg_resize_mid_to_words):
+            fn.argtypes = [p, i, i, i, p, p, i, i, i, p, p]
+            fn.restype = ctypes.c_int
         _bound = lib
     return _bound
 
 
 @functools.lru_cache(maxsize=16)
-def _device_tables(in_h, in_w, out_h, out_w, dev):
-    """(starts_v, taps_v, starts_h, taps_h, windows_v, windows_h) on
-    ``dev``, copied from the host once per geometry and device."""
-    plan = plan_tiles(in_h, in_w, out_h, out_w)
-    host = (*axis_taps(in_h, out_h, False), *axis_taps(in_w, out_w, True),
-            torch.from_numpy(plan.windows_v), torch.from_numpy(plan.windows_h))
+def _device_taps(in_h, in_w, out_h, out_w, dev):
+    """(starts_v, taps_v, starts_h, taps_h) on ``dev``, copied from the
+    host once per geometry and device."""
+    host = (*axis_taps(in_h, out_h, False), *axis_taps(in_w, out_w, True))
     return tuple(t.to(dev).contiguous() for t in host)
 
 
-def _given(table, out_size, taps, dev):
-    starts, tap = table
-    starts = starts.to(dev, torch.int32).contiguous()
-    tap = tap.to(dev, torch.bfloat16).contiguous()
-    if starts.shape != (out_size,) or tap.shape != (out_size, taps):
-        raise ValueError("tap tables do not match the geometry's "
-                         "axis_taps")
-    return starts, tap
+@functools.lru_cache(maxsize=16)
+def _device_windows(in_h, in_w, out_h, out_w, dev):
+    """The tile plan's (windows_v, windows_h) on ``dev``."""
+    plan = plan_tiles(in_h, in_w, out_h, out_w)
+    return tuple(torch.from_numpy(w).to(dev).contiguous()
+                 for w in (plan.windows_v, plan.windows_h))
 
 
-def resize_video_words_cuda(words: torch.Tensor, out_h: int, out_w: int,
-                            taps_v=None, taps_h=None) -> torch.Tensor:
-    """[B, H, W] int32 CUDA words -> [B, out_h, out_w] int32 words.
-
-    ``taps_v``/``taps_h`` are the geometry's ``axis_taps`` already on the
-    device (the video stage holds them as buffers); without them the
-    wrapper's per-geometry device copies are used.  Only ``axis_taps``'
-    own tables are accepted: the tiles' input windows are planned from
-    them, and other starts would read outside a tile's staged window.
-    Their shapes are checked, their values are not (that would wait on
-    the device every call)."""
+def resize_video_words_cuda(words: torch.Tensor, out_h: int,
+                            out_w: int) -> torch.Tensor:
+    """[B, H, W] int32 CUDA words -> [B, out_h, out_w] int32 words."""
     global LAUNCHES
     if not words.is_cuda or words.dtype != torch.int32 or words.dim() != 3:
         raise ValueError("resize_video_words_cuda takes [B, H, W] int32 "
@@ -75,12 +72,10 @@ def resize_video_words_cuda(words: torch.Tensor, out_h: int, out_w: int,
     b, in_h, in_w = words.shape
     dev = words.device
     plan = plan_tiles(in_h, in_w, out_h, out_w)
-    sv, tv, sh, th, win_v, win_h = _device_tables(in_h, in_w, out_h, out_w,
-                                                  dev)
-    if taps_v is not None:
-        sv, tv = _given(taps_v, out_h, plan.taps_v, dev)
-    if taps_h is not None:
-        sh, th = _given(taps_h, out_w, plan.taps_h, dev)
+    if plan is None:
+        return _resize_passes(words, out_h, out_w)
+    sv, tv, sh, th = _device_taps(in_h, in_w, out_h, out_w, dev)
+    win_v, win_h = _device_windows(in_h, in_w, out_h, out_w, dev)
     out = torch.empty((b, out_h, out_w), dtype=torch.int32, device=dev)
     ptr = lambda t: ctypes.c_void_p(t.data_ptr())
     wide = in_w % 4 == 0 and words.data_ptr() % 16 == 0
@@ -92,4 +87,36 @@ def resize_video_words_cuda(words: torch.Tensor, out_h: int, out_w: int,
         ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)),
         "resize_words")
     LAUNCHES += 1
+    return out
+
+
+def _resize_passes(words: torch.Tensor, out_h: int,
+                   out_w: int) -> torch.Tensor:
+    """The two-pass route (csrc/resize_passes.cu): one launch a pass, in
+    the order ``vertical_first`` gives, through a bf16 [B, 3, H1, W1]
+    intermediate allocated here."""
+    global PASS_LAUNCHES
+    b, in_h, in_w = words.shape
+    dev = words.device
+    sv, tv, sh, th = _device_taps(in_h, in_w, out_h, out_w, dev)
+    lib = _lib()
+    stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+    ptr = lambda t: ctypes.c_void_p(t.data_ptr())
+    out = torch.empty((b, out_h, out_w), dtype=torch.int32, device=dev)
+    if vertical_first(in_h, in_w, out_h, out_w):
+        mid_hw = (out_h, in_w)
+        first, second = (sv, tv, 1, out_h), (sh, th, 0, out_w)
+    else:
+        mid_hw = (in_h, out_w)
+        first, second = (sh, th, 0, out_w), (sv, tv, 1, out_h)
+    mid = torch.empty((b, 3, *mid_hw), dtype=torch.bfloat16, device=dev)
+    s, t, vert, n = first
+    _build.check(lib.timg_resize_words_to_mid(
+        ptr(words), b, in_h, in_w, ptr(s), ptr(t), t.shape[1], vert, n,
+        ptr(mid), stream), "resize_words_to_mid")
+    s, t, vert, n = second
+    _build.check(lib.timg_resize_mid_to_words(
+        ptr(mid), b, mid_hw[0], mid_hw[1], ptr(s), ptr(t), t.shape[1], vert,
+        n, ptr(out), stream), "resize_mid_to_words")
+    PASS_LAUNCHES += 1
     return out

@@ -11,9 +11,10 @@ median-cut tree quantizer.  On [B, H, W, C >= 3] uint8 bytes:
 ``fs_dither_tree_rgb`` is the tree quantizer on the same input (an XLA
 scan in the reference, ops/sixel.py:_fs_dither_tree_impl).  Each is one
 CUDA launch of csrc/fs_dither_cube.cu, which walks the wavefront
-x = t - 2y directly, one block per frame and one thread per row, bound
-by the latency of its w + 2(h-1) serial steps; the byte entries read
-each pixel's first three channels in place.
+x = t - 2y directly, one row a lane, bound by the latency of its
+w + 2(h-1) serial steps; ``plan_bands`` spreads a frame's warps over
+blocks ("bands") so that the batch fills the card's SMs.  The byte
+entries read each pixel's first three channels in place.
 
 The plain versions are the same wavefront in torch ops, mirroring
 timg_tpu/ops/sixel_np.py:_wavefront_np step by step; the skew is a
@@ -23,6 +24,8 @@ strided view, so they run unchanged on the CPU and on the card.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 
 import torch
 
@@ -37,6 +40,60 @@ TREE_RGB_LAUNCHES = 0   # fs_dither_tree_rgb launches (bytes)
 
 _C7, _C5, _C3, _C1 = 7.0 / 16.0, 5.0 / 16.0, 3.0 / 16.0, 1.0 / 16.0
 
+# The band plan of the CUDA driver (csrc/fs_dither_cube.cu): a warp owns
+# 32 rows, a block at most MAX_WARPS warps; ``__launch_bounds__`` of
+# MAX_WARPS * 32 threads lets ptxas use up to REGISTERS_PER_THREAD
+# registers, so a full block fits the SM's REGISTERS_PER_SM.
+ROWS_PER_WARP = 32
+MAX_WARPS = 16
+MIN_WARPS = 4
+MAX_ROWS = 4096
+CHUNK = 8                    # steps a chunk of the driver's step loop
+CARRY_INTS = 8               # int32 words of one step's carry (Carry)
+REGISTERS_PER_SM = 65536
+REGISTERS_PER_THREAD = 128
+
+
+@dataclasses.dataclass(frozen=True)
+class BandPlan:
+    """``bands`` blocks a frame, of ``warps`` warps each (32 rows a
+    warp); the last band may hold fewer rows."""
+    bands: int
+    warps: int
+
+
+def plan_bands(b: int, h: int, n_sms: int) -> BandPlan:
+    """How many blocks a frame of h rows takes in a batch of b frames on
+    a card of ``n_sms`` SMs: about n_sms / b bands a frame, so that the
+    batch spreads over the SMs, with MIN_WARPS to MAX_WARPS warps a block
+    (fewer only where the frame has fewer) and no empty band.  Four warps
+    a block beat one or two at B=1 and B=8 on the H100 (PERF.md §6, PR 6):
+    a warp edge inside a block hands its carries over through shared
+    memory, a band edge through L2."""
+    n_warps = -(-h // ROWS_PER_WARP)
+    want = max(1, n_sms // max(b, 1))
+    warps = min(n_warps, MAX_WARPS, max(MIN_WARPS, -(-n_warps // want)))
+    return BandPlan(-(-n_warps // warps), warps)
+
+
+def ticket_band(ticket: int, b: int) -> tuple:
+    """(frame, band) of a block's ticket, as the driver maps it: band j
+    of every frame comes after band j-1 of every frame, so a block waits
+    only on blocks that took their tickets before it."""
+    return ticket % b, ticket // b
+
+
+def edge_len(h: int, w: int) -> int:
+    """Steps of a band edge's carry array: every step a warp can run,
+    rounded up to whole pairs of chunks."""
+    return w + 2 * h + 4 * CHUNK
+
+
+@functools.lru_cache(maxsize=8)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 _bound = None
 
 
@@ -45,17 +102,24 @@ def _lib():
     if _bound is None:
         lib = _build.load()
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.timg_fs_dither_cube.argtypes = [p, i, i, i, i, i, p, i, p]
-        lib.timg_fs_dither_cube.restype = ctypes.c_int
-        lib.timg_fs_dither_tree.argtypes = [p, i, i, i, i, i, p, p, p, i, p]
-        lib.timg_fs_dither_tree.restype = ctypes.c_int
-        lib.timg_fs_dither_cube_rgb.argtypes = [p, i, i, i, i, i, i, p, i, p]
-        lib.timg_fs_dither_cube_rgb.restype = ctypes.c_int
-        lib.timg_fs_dither_tree_rgb.argtypes = [p, i, i, i, i, i, i, p, p, p,
-                                                i, p]
-        lib.timg_fs_dither_tree_rgb.restype = ctypes.c_int
-        lib.timg_fs_dither_cube_max_rows.argtypes = []
-        lib.timg_fs_dither_cube_max_rows.restype = ctypes.c_int
+        band = [i, i, p, p, i, p]    # bands, warps, sync, edges, len, stream
+        lib.timg_fs_dither_cube.argtypes = [p, i, i, i, i, i, p, i] + band
+        lib.timg_fs_dither_tree.argtypes = [p, i, i, i, i, i, p, p, p,
+                                            i] + band
+        lib.timg_fs_dither_cube_rgb.argtypes = [p, i, i, i, i, i, i, p,
+                                                i] + band
+        lib.timg_fs_dither_tree_rgb.argtypes = [p, i, i, i, i, i, i, p, p,
+                                                p, i] + band
+        for fn in ("cube", "tree", "cube_rgb", "tree_rgb", "cube_max_rows",
+                   "max_warps", "chunk"):
+            getattr(lib, f"timg_fs_dither_{fn}").restype = ctypes.c_int
+        for fn in ("cube_max_rows", "max_warps", "chunk"):
+            getattr(lib, f"timg_fs_dither_{fn}").argtypes = []
+        if (lib.timg_fs_dither_max_warps(), lib.timg_fs_dither_chunk(),
+                lib.timg_fs_dither_cube_max_rows()) != (MAX_WARPS, CHUNK,
+                                                        MAX_ROWS):
+            raise RuntimeError("csrc/fs_dither_cube.cu and ops/sixel_kernel"
+                               ".py disagree on the band plan's limits")
         _bound = lib
     return _bound
 
@@ -247,6 +311,28 @@ def _check_rows(h: int, name: str) -> None:
         raise ValueError(f"{name}: h={h} exceeds {max_rows} rows")
 
 
+def _launch(entry: str, data: list, b: int, h: int, w: int,
+            dev: torch.device, out_u8: bool) -> torch.Tensor:
+    """Allocate [b, h, w] indices and launch ``timg_fs_dither_<entry>``
+    with its data arguments ``data`` (pointers as tensors), the output,
+    and the band plan with its scratch, zeroed on the current stream: the
+    ticket counter and the band edges' carries."""
+    out = torch.empty((b, h, w), dtype=torch.uint8 if out_u8 else torch.int32,
+                      device=dev)
+    plan = plan_bands(b, h, _sm_count(dev.index or 0))
+    n = edge_len(h, w)
+    sync = torch.zeros(1, dtype=torch.int32, device=dev)
+    carries = torch.zeros(max(1, b * (plan.bands - 1) * n * CARRY_INTS),
+                          dtype=torch.int32, device=dev)
+    ptr = lambda t: ctypes.c_void_p(t.data_ptr())
+    args = [ptr(a) if isinstance(a, torch.Tensor) else a for a in data]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    _build.check(getattr(_lib(), f"timg_fs_dither_{entry}")(
+        *args, ptr(out), int(out_u8), plan.bands, plan.warps, ptr(sync),
+        ptr(carries), n, ctypes.c_void_p(stream)), f"fs_dither_{entry}")
+    return out
+
+
 def _cuda_bytes(frames: torch.Tensor, h: int, w: int,
                 name: str) -> torch.Tensor:
     """CUDA [B, H >= h, W >= w, C >= 3] uint8, row-major (made so if
@@ -281,13 +367,8 @@ def fs_dither_cube_cuda(frames: torch.Tensor, h: int, w: int,
     global LAUNCHES
     words = _pitched_words(frames, h, w, "fs_dither_cube_cuda")
     b, ph, pw = words.shape
-    out = torch.empty((b, h, w), dtype=torch.uint8 if out_u8 else torch.int32,
-                      device=words.device)
-    stream = torch.cuda.current_stream(words.device).cuda_stream
-    _build.check(_lib().timg_fs_dither_cube(
-        ctypes.c_void_p(words.data_ptr()), b, h, w, ph, pw,
-        ctypes.c_void_p(out.data_ptr()), int(out_u8),
-        ctypes.c_void_p(stream)), "fs_dither_cube")
+    out = _launch("cube", [words, b, h, w, ph, pw], b, h, w, words.device,
+                  out_u8)
     LAUNCHES += 1
     return out
 
@@ -300,15 +381,9 @@ def fs_dither_tree_cuda(frames: torch.Tensor, levels: torch.Tensor,
     global TREE_LAUNCHES
     words = _pitched_words(frames, h, w, "fs_dither_tree_cuda")
     b, ph, pw = words.shape
-    dev = words.device
-    levels, leaves = _tree_tables(levels, leaves, dev)
-    out = torch.empty((b, h, w), dtype=torch.uint8 if out_u8 else torch.int32,
-                      device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    ptr = lambda t: ctypes.c_void_p(t.data_ptr())
-    _build.check(_lib().timg_fs_dither_tree(
-        ptr(words), b, h, w, ph, pw, ptr(levels), ptr(leaves), ptr(out),
-        int(out_u8), ctypes.c_void_p(stream)), "fs_dither_tree")
+    levels, leaves = _tree_tables(levels, leaves, words.device)
+    out = _launch("tree", [words, b, h, w, ph, pw, levels, leaves], b, h, w,
+                  words.device, out_u8)
     TREE_LAUNCHES += 1
     return out
 
@@ -320,13 +395,8 @@ def fs_dither_cube_rgb_cuda(frames: torch.Tensor, h: int, w: int,
     global RGB_LAUNCHES
     frames = _cuda_bytes(frames, h, w, "fs_dither_cube_rgb_cuda")
     b, ph, pw, ch = frames.shape
-    out = torch.empty((b, h, w), dtype=torch.uint8 if out_u8 else torch.int32,
-                      device=frames.device)
-    stream = torch.cuda.current_stream(frames.device).cuda_stream
-    _build.check(_lib().timg_fs_dither_cube_rgb(
-        ctypes.c_void_p(frames.data_ptr()), b, h, w, ph, pw, ch,
-        ctypes.c_void_p(out.data_ptr()), int(out_u8),
-        ctypes.c_void_p(stream)), "fs_dither_cube_rgb")
+    out = _launch("cube_rgb", [frames, b, h, w, ph, pw, ch], b, h, w,
+                  frames.device, out_u8)
     RGB_LAUNCHES += 1
     return out
 
@@ -340,16 +410,9 @@ def fs_dither_tree_rgb_cuda(frames: torch.Tensor, levels: torch.Tensor,
     global TREE_RGB_LAUNCHES
     frames = _cuda_bytes(frames, h, w, "fs_dither_tree_rgb_cuda")
     b, ph, pw, ch = frames.shape
-    dev = frames.device
-    levels, leaves = _tree_tables(levels, leaves, dev)
-    out = torch.empty((b, h, w), dtype=torch.uint8 if out_u8 else torch.int32,
-                      device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    ptr = lambda t: ctypes.c_void_p(t.data_ptr())
-    _build.check(_lib().timg_fs_dither_tree_rgb(
-        ptr(frames), b, h, w, ph, pw, ch, ptr(levels), ptr(leaves),
-        ptr(out), int(out_u8), ctypes.c_void_p(stream)),
-        "fs_dither_tree_rgb")
+    levels, leaves = _tree_tables(levels, leaves, frames.device)
+    out = _launch("tree_rgb", [frames, b, h, w, ph, pw, ch, levels, leaves],
+                  b, h, w, frames.device, out_u8)
     TREE_RGB_LAUNCHES += 1
     return out
 

@@ -30,7 +30,7 @@ from timg_tpu_torch.ops import libsixel_quant as lsq
 from timg_tpu_torch.ops.libsixel_kernel import (build_bucket_tables,
                                                 fs_dither_table_fused,
                                                 pad_palettes, palette_words)
-from timg_tpu_torch.ops.resize import axis_taps, resize_video_words
+from timg_tpu_torch.ops.resize import resize_video_words
 from timg_tpu_torch.ops.sixel_kernel import (fs_dither_cube_fused,
                                              fs_dither_tree_fused)
 from timg_tpu_torch.ops.sixel_np import median_cut_tree
@@ -102,33 +102,22 @@ class DeviceFrame:
 
 
 class VideoStage(nn.Module):
-    """Convert + resize + band padding for one window geometry.
+    """Convert + resize + band padding for one window geometry (the JAX
+    package compiled one jit per geometry).  The resize's tap tables are
+    the resize's own, cached per geometry (ops/resize_kernel.py)."""
 
-    Holds the resize tap tables as buffers on the device (the JAX
-    package compiled one jit per geometry; here the state that jit
-    closed over lives in the module)."""
-
-    def __init__(self, in_h: int, in_w: int, th: int, tw: int,
-                 full_range: bool, padded_h: int, bg_word: int,
-                 device: torch.device):
+    def __init__(self, th: int, tw: int, full_range: bool, padded_h: int,
+                 bg_word: int):
         super().__init__()
         self.th, self.tw = th, tw
         self.full_range = full_range
         self.padded_h = padded_h
         self.bg_word = bg_word
-        sv, tv = axis_taps(in_h, th, False)
-        sh, thp = axis_taps(in_w, tw, True)
-        self.register_buffer("starts_v", sv.to(device))
-        self.register_buffer("taps_v", tv.to(device))
-        self.register_buffer("starts_h", sh.to(device))
-        self.register_buffer("taps_h", thp.to(device))
 
     def forward(self, y: torch.Tensor, u: torch.Tensor,
                 v: torch.Tensor) -> torch.Tensor:
         words = yuv420_to_rgba_words(y, u, v, self.full_range)
-        words = resize_video_words(words, self.th, self.tw,
-                                   (self.starts_v, self.taps_v),
-                                   (self.starts_h, self.taps_h))
+        words = resize_video_words(words, self.th, self.tw)
         if self.padded_h > self.th:
             pad = torch.full((words.shape[0], self.padded_h - self.th,
                               self.tw), self.bg_word, dtype=torch.int32,
@@ -167,8 +156,7 @@ def prime_sixel_video_device(ys, us, vs, th: int, tw: int,
            dev)
     stage = state.get("video_stage")
     if stage is None or stage[0] != key:
-        stage = (key, VideoStage(ys.shape[1], ys.shape[2], th, tw,
-                                 full_range, padded_h, bg_word, dev))
+        stage = (key, VideoStage(th, tw, full_range, padded_h, bg_word))
         state["video_stage"] = stage
     planes = [torch.from_numpy(np.ascontiguousarray(p)).to(dev)
               for p in (ys, us, vs)]
