@@ -15,17 +15,18 @@ only the port (timg_tpu_torch), never jax or the JAX package.  Phases:
    on the card and resized to 720x1280 by the resize kernel (also timed
    at the CLI's 8-frame window, split by torch.profiler, and checked and
    timed on 8 seeded frames of 2160x3840, which the two-pass route also
-   resizes into 16x28 pixels, a geometry no fused tile fits), then
+   resizes into 16x28 pixels, a geometry no fused tile fits, split by
+   torch.profiler into its two passes beside the band matmuls), then
    dithered at 720 rows and at 722 rows padded to 726 with background
    rows by each dither kernel: FS cube on words (K6) and on bytes (K9,
    3 and 4 channels); libsixel (per-frame palettes from the host, with
    one flat frame whose diffuse flag is 0, the bucket-table build and
    the table dither); and the median-cut tree on words (K7) and on
-   bytes.  The f32 driver is also checked and timed at the batches the
-   main paths launch besides 32: K6 and K7 at the CLI's 8-frame window,
-   K9 and the byte tree at one frame (the library's per-frame loop), and
-   K6 and K7 on 32 rows (one warp alone), each with its time a serial
-   step.  Each kernel must equal its plain PyTorch version byte for
+   bytes.  The wavefront driver is also checked and timed at the
+   batches the main paths launch besides 32: K6, K7 and K8 at the CLI's
+   8-frame window, K9 and the byte tree at one frame (the library's
+   per-frame loop), and K6, K7 and K8 on 32 rows (one warp alone), each
+   with its time a serial step.  Each kernel must equal its plain PyTorch version byte for
    byte (the resize's on CPU copies, the others' on the card); all are
    timed with CUDA events beside their bound (bytes over 3.35 TB/s or
    operations over 67 TFLOP/s, whichever is larger) and, where one
@@ -84,10 +85,10 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 F32_OPS_PER_S = 67e12       # float32 outside the tensor cores; also used
                             # for the int32 ALU work of the libsixel kernels
 # operations a pixel of each dither kernel, counted from
-# csrc/fs_dither_cube.cu and csrc/fs_dither_table.cu.  f32 kernels: the
-# row-above mix (15), the incoming sum and clip (15), the error (3) and
-# the quantizer (cube: 18 with the index; tree: 3 roundings, 8 levels of
-# 4, the leaf unpack 3 = 38).  Table kernel: four truncated shares with
+# csrc/fs_dither_cube.cu.  f32 policy: the row-above mix (15), the
+# incoming sum and clip (15), the error (3) and the quantizer (cube: 18
+# with the index; tree: 3 roundings, 8 levels of 4, the leaf unpack 3 =
+# 38).  Integer policy with the table (K8): four truncated shares with
 # clamps a channel (60), the key (5), the color unpack and offsets (6),
 # the row-above offsets (12).
 CUBE_OPS_PER_PX = 51
@@ -226,32 +227,33 @@ def check_equal(what: str, got, want) -> int:
     return max_abs_err(got, want)
 
 
-def resize_profile(words) -> dict:
+def resize_profile(words, out_h: int = OUT_H, out_w: int = OUT_W) -> dict:
     """torch.profiler's device time of each kernel and copy in a resize
-    call, per call, mean of 3 calls; prints one line each and returns
+    call to out_h x out_w, per call: the mean over the calls the profiler
+    recorded of 3 (it may drop some); prints one line each and returns
     {name: ms}."""
     import torch
 
     from timg_tpu_torch.ops import resize_kernel
 
-    resize_kernel.resize_video_words_cuda(words, OUT_H, OUT_W)   # warm-up
+    resize_kernel.resize_video_words_cuda(words, out_h, out_w)   # warm-up
     torch.cuda.synchronize()
     act = torch.profiler.ProfilerActivity
     with torch.profiler.profile(activities=[act.CPU, act.CUDA]) as prof:
         for _ in range(3):
-            resize_kernel.resize_video_words_cuda(words, OUT_H, OUT_W)
+            resize_kernel.resize_video_words_cuda(words, out_h, out_w)
         torch.cuda.synchronize()
     split = {}
     for e in prof.key_averages():
         us = getattr(e, "self_device_time_total",
                      getattr(e, "self_cuda_time_total", 0))
         if us > 0 and not e.key.startswith("aten::"):   # an aten op's
-            split[e.key] = us / 3 / 1000.0            # is its kernels'
+            split[e.key] = us / max(e.count, 1) / 1000.0   # is its kernels'
     if not split:
         print("kernels: resize profile: torch.profiler saw no device time")
     for key, ms in sorted(split.items(), key=lambda kv: -kv[1]):
-        print(f"kernels: resize profile, B={words.shape[0]}: "
-              f"{ms:.6f} ms a call of device time in {key}")
+        print(f"kernels: resize profile, B={words.shape[0]} -> {out_h}x"
+              f"{out_w}: {ms:.6f} ms a call of device time in {key}")
     return split
 
 
@@ -287,9 +289,9 @@ def resize_4k(dev) -> None:
 def resize_passes(words, words_cpu) -> dict:
     """The two-pass route, for geometries no fused tile fits: the 4K
     window (B=8) into 16x28 pixels (a terminal area of a few cells),
-    byte-equal to the plain version on CPU copies; timed beside the
-    plain version and the JAX package's formulation (two bf16 band
-    matmuls)."""
+    byte-equal to the plain version on CPU copies; timed (and split into
+    its passes by torch.profiler) beside the plain version and the JAX
+    package's formulation (two bf16 band matmuls)."""
     import torch
 
     from timg_tpu_torch.ops import resize_kernel
@@ -333,7 +335,9 @@ def resize_passes(words, words_cpu) -> dict:
                 N_WINDOW * 3 * macs * 2))
     print(f"kernels: resize (two passes) {H_4K}x{W_4K} -> {oh}x{ow}, "
           f"B={N_WINDOW}: equal to plain (CPU); {r['ms']:.6f} ms, bound "
-          f"{r['bound_ms']:.6f} ms ({r['bound_by']})")
+          f"{r['bound_ms']:.6f} ms ({r['bound_by']}), band matmuls "
+          f"{r['library_ms']:.6f} ms")
+    resize_profile(words, oh, ow)
     return r
 
 
@@ -500,7 +504,7 @@ def kernel_phase(dev):
         want = lib.fs_dither_table_plain(w_in, tables, palw, diffs, h, OUT_W)
         errs.append(check_equal(f"fs_dither_table at {h}x{OUT_W}", got,
                                 want))
-    print(f"kernels: fs_dither_table {OUT_H}x{OUT_W} and {OUT_H + 6}x"
+    print(f"kernels: fs_dither_table (K8) {OUT_H}x{OUT_W} and {OUT_H + 6}x"
           f"{OUT_W} (bg-padded; one diffuse=0 frame), B={N_KERNEL}: equal "
           "to plain")
     results["table"] = dict(
@@ -560,12 +564,13 @@ def kernel_phase(dev):
         **bound(px720 * (3 + 1) + (8 * 128 + 256) * 4,
                 px720 * TREE_OPS_PER_PX))
 
-    # the f32 driver at the other batches the main paths launch: the
-    # CLI's 8-frame window (K6 at 720 rows, K7 at 726) and one frame, as
-    # the library's per-frame adaptive loop runs the byte tree (and K9);
-    # then one warp alone (32 rows of one frame): a step's latency with no
-    # warp edge and no other warp on the SM
+    # the wavefront driver at the other batches the main paths launch:
+    # the CLI's 8-frame window (K6 at 720 rows, K7 and K8 at 726) and one
+    # frame, as the library's per-frame adaptive loop runs the byte tree
+    # (and K9); then one warp alone (32 rows of one frame): a step's
+    # latency with no warp edge and no other warp on the SM
     lone = (w720[:1, :WARP_ROWS].contiguous(), WARP_ROWS, OUT_W)
+    w8 = N_WINDOW
     shapes = (
         ("fs_dither_cube", N_WINDOW, OUT_H, sixel_kernel.fs_dither_cube_cuda,
          sixel_kernel.fs_dither_cube_plain, (w720[:N_WINDOW], OUT_H, OUT_W)),
@@ -582,7 +587,13 @@ def kernel_phase(dev):
          sixel_kernel.fs_dither_cube_plain, lone),
         ("fs_dither_tree", 1, WARP_ROWS, sixel_kernel.fs_dither_tree_cuda,
          sixel_kernel.fs_dither_tree_plain,
-         (lone[0], levels, leaves) + lone[1:]))
+         (lone[0], levels, leaves) + lone[1:]),
+        ("fs_dither_table", w8, OUT_H + 6, lib.fs_dither_table_cuda,
+         lib.fs_dither_table_plain,
+         (padded[:w8], tables[:w8], palw[:w8], diffs[:w8], OUT_H + 6, OUT_W)),
+        ("fs_dither_table", 1, WARP_ROWS, lib.fs_dither_table_cuda,
+         lib.fs_dither_table_plain,
+         (lone[0], tables[:1], palw[:1], diffs[:1]) + lone[1:]))
     for name, b, h, kern, plain, args in shapes:
         check_equal(f"{name} at B={b}, {h}x{OUT_W}", kern(*args),
                     plain(*args))
@@ -889,7 +900,7 @@ def main() -> int:
          "timg_tpu/ops/sixel_pallas3.py:391"),
         ("bucket_tables", "bucket", "bucket_tables.cu",
          "timg_tpu/ops/sixel_pallas3.py:728"),
-        ("fs_dither_table", "table", "fs_dither_table.cu",
+        ("fs_dither_table", "table", "fs_dither_cube.cu",
          "timg_tpu/ops/sixel_pallas3.py:662"),
         ("fs_dither_tree", "tree", "fs_dither_cube.cu",
          "timg_tpu/ops/sixel_pallas3.py:876"),

@@ -171,14 +171,141 @@ def test_video_stage_matches_plain(cuda_device):
 
 
 # Geometries that no fused tile fits (ops/resize.py plan_tiles -> None):
-# they take the two-pass kernels of csrc/resize_passes.cu.
-UNTILED = [(2160, 3840, 16, 28), (2160, 3840, 24, 40), (1080, 1920, 12, 20)]
+# they take the two-pass kernels of csrc/resize_passes.cu.  The first
+# three are horizontal-first (the pass along rows over the words, then
+# the pass along columns); the fourth is vertical-first; the fifth is
+# horizontal-first with rows wider than one chunk of the pass along rows
+# (4,096 words), whose taps it reloads each chunk; the last has rows of
+# a width that is no multiple of 4 words, which it copies a word at a
+# time.
+UNTILED = [(2160, 3840, 16, 28), (2160, 3840, 24, 40), (1080, 1920, 12, 20),
+           (2160, 3840, 12, 28), (200, 4400, 6, 24), (1080, 1922, 12, 20)]
 
 
 @pytest.mark.parametrize("h,w,oh,ow,tiled", [g + (False,) for g in UNTILED]
                          + [(1080, 1920, 16, 28, True)])
 def test_tile_planner_refuses_only_untileable(h, w, oh, ow, tiled):
     assert (tresize.plan_tiles(h, w, oh, ow) is not None) == tiled
+
+
+def test_untiled_pass_orders():
+    assert [tresize.vertical_first(*g) for g in UNTILED] == [False] * 3 \
+        + [True, False, False]
+
+
+def _f32(x):
+    return np.asarray(x, np.float32)
+
+
+def _dot_sum(vals, taps, s):
+    """The reference dot's order, a tap at a time (ops/resize.py's module
+    docstring): vals [R, n] f32, taps [T] f32 -> [R] f32."""
+    total = even = odd = np.zeros(vals.shape[0], np.float32)
+    for t, tap in enumerate(taps):
+        k = s + t
+        if t > 0 and k % 32 == 0:
+            total = total + (even + odd)
+            even = odd = np.zeros_like(even)
+        if k & 1:
+            odd = odd + tap * vals[:, k]
+        else:
+            even = even + tap * vals[:, k]
+    return total + (even + odd)
+
+
+def _rows_kernel_sums(vals, taps16, dst, nb_max, starts, width):
+    """resize_rows_to_mid's order, all outputs: thread (j, p) sums, for
+    each slot, its 16 products of inputs 32 j + p + 2i in ascending i
+    (the slot's +0 taps outside the band included, as the kernel adds
+    them); the chain of output o adds each block's (even + odd) in block
+    order.  -> [R, out] f32."""
+    rows, n = vals.shape
+    nb, _, slots, _ = taps16.shape
+    padded = np.zeros((rows, 32 * nb), np.float32)
+    padded[:, :n] = vals
+    sums = np.zeros((rows, len(starts) * 3 * nb_max * 2), np.float32)
+    for j in range(nb):
+        for p in (0, 1):
+            x = padded[:, 32 * j + p::2][:, :16]
+            for m in range(slots):
+                acc = np.zeros(rows, np.float32)
+                for i in range(16):
+                    acc = acc + taps16[j, p, m, i] * x[:, i]
+                if dst[j, m] >= 0:
+                    sums[:, dst[j, m] + p] = acc
+    out = np.zeros((rows, len(starts)), np.float32)
+    for o, s in enumerate(starts):
+        total = np.zeros(rows, np.float32)
+        for jr in range((s + width - 1) // 32 - s // 32 + 1):
+            e = 2 * (3 * nb_max * o + jr)
+            total = total + (sums[:, e] + sums[:, e + 1])
+        out[:, o] = total
+    return out
+
+
+def _pass_kernel_sum(vals, taps, s):
+    """resize_pass's order: a block of 32 inputs at a time, its even and
+    odd products in two ascending sums, inputs outside the band skipped."""
+    total = np.zeros(vals.shape[0], np.float32)
+    for kb in range(s - s % 32, s + len(taps), 32):
+        even = odd = np.zeros_like(total)
+        for k in range(max(kb, s), min(kb + 32, s + len(taps))):
+            if k & 1:
+                odd = odd + taps[k - s] * vals[:, k]
+            else:
+                even = even + taps[k - s] * vals[:, k]
+        total = total + (even + odd)
+    return total
+
+
+def _bits(x):
+    return np.asarray(x, np.float32).view(np.uint32)
+
+
+@pytest.mark.parametrize("geometry", UNTILED + [(None, 80, None, 2)])
+@pytest.mark.parametrize("values", ["bytes", "bf16"])
+def test_resize_passes_split_keeps_the_dot_order(geometry, values):
+    """The two-pass kernels' split of each output's sum (per thread, per
+    order block and parity, then the blocks in order) equals the
+    reference dot's order bit for bit in f32, on every tap table of the
+    untiled geometries (both axes) and on hand-made bands whose first and
+    last order blocks are partial; a plain ascending sum does not, so the
+    check can fail."""
+    rng = np.random.default_rng(7)
+    _, n_in, _, n_out = geometry
+    tables = []
+    if geometry[0] is None:    # bands starting mid-block, ending mid-block
+        starts = torch.tensor([5, 37], dtype=torch.int32)
+        taps = torch.from_numpy(rng.uniform(-0.05, 0.3, (2, 40)).astype(
+            np.float32)).to(torch.bfloat16)
+        tables.append((n_in, starts, taps))
+    else:
+        h, w, oh, ow = geometry
+        tables += [(w, *tresize.axis_taps(w, ow, True)),
+                   (h, *tresize.axis_taps(h, oh, False))]
+    differs = 0
+    for n, starts, taps in tables:
+        if values == "bytes":
+            vals = rng.integers(0, 256, (16, n)).astype(np.float32)
+        else:
+            vals = torch.from_numpy(rng.uniform(0, 255, (16, n)).astype(
+                np.float32)).to(torch.bfloat16).to(torch.float32).numpy()
+        taps16, dst, nb_max = tresize.slot_taps(starts, taps, n)
+        assert taps16.shape[2] <= 6        # the kernel's kSlots
+        tf = taps.to(torch.float32).numpy()
+        width = tf.shape[1]
+        rows = _rows_kernel_sums(vals, taps16.numpy(), dst.numpy(), nb_max,
+                                 starts.tolist(), width)
+        for o, s in enumerate(starts.tolist()):
+            want = _bits(_dot_sum(vals, tf[o], s))
+            assert np.array_equal(_bits(rows[:, o]), want)
+            assert np.array_equal(_bits(_pass_kernel_sum(vals, tf[o], s)),
+                                  want)
+            ascending = np.zeros(vals.shape[0], np.float32)
+            for t in range(width):
+                ascending = ascending + tf[o, t] * vals[:, s + t]
+            differs += int((_bits(ascending) != want).sum())
+    assert differs > 0
 
 
 @pytest.mark.cuda
@@ -232,6 +359,24 @@ def test_band_plan_covers_rows_in_ticket_order(b, h):
     for w in (1, 1280):
         assert sixel_kernel.edge_len(h, w) >= \
             2 * (h - 1) + w + 1 + 2 * sixel_kernel.CHUNK
+
+
+# K8 (the bucket table and its palette in every block's shared memory)
+# on the driver's band plan at the batches and heights the main paths
+# launch: a block fits the SM's shared memory and registers.
+@pytest.mark.parametrize("b", [1, 8, 32])
+@pytest.mark.parametrize("h", [1, 31, 720, 726, 4096])
+def test_table_band_plan_fits_the_sm(b, h):
+    plan = sixel_kernel.plan_bands(b, h, 132)
+    smem = sixel_kernel.block_smem_bytes("table", plan.warps)
+    assert smem == (1 << 15) + 4 * 256 + plan.warps * (64 * 32 + 4)
+    assert smem <= sixel_kernel.SMEM_PER_BLOCK
+    assert plan.warps * 32 * sixel_kernel.REGISTERS_PER_THREAD \
+        <= sixel_kernel.REGISTERS_PER_SM
+    # the f32 quantizers' blocks stay under the 48 KB default
+    for quant in ("cube", "tree"):
+        assert sixel_kernel.block_smem_bytes(quant, sixel_kernel.MAX_WARPS) \
+            <= 48 * 1024
 
 
 # The f32 driver at warp and band edges: 31-33 and 65 rows (a partial
@@ -301,16 +446,34 @@ def test_bucket_kernel_matches_plain(cuda_device, b, seed):
     assert torch.equal(got.cpu(), want)
 
 
+# K8 on the shared driver: its own shapes, with libsixel's palettes and
+# tables (the last frame flat, with diffuse flag 0: a palette-only frame
+# in the launch of diffusing ones); and the driver's warp and band edges
+# (DRIVER_EDGES) with random tables and palettes, so that large offsets
+# cross every edge, every frame diffusing but a last palette-only one
+# where the batch has more than one.
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,h,w", [(3, 18, 25), (2, 130, 200), (2, 1100, 40),
-                                   (1, 4096, 8)])
-def test_table_kernel_matches_plain(cuda_device, b, h, w):
+@pytest.mark.parametrize("b,h,w,random", [(3, 18, 25, False),
+                                          (2, 130, 200, False),
+                                          (2, 1100, 40, False),
+                                          (1, 4096, 8, False)]
+                         + [e + (True,) for e in DRIVER_EDGES])
+def test_table_kernel_matches_plain(cuda_device, b, h, w, random):
     words = _words(h + 1, b, h, w)
-    smooth = torch.full((h, w), 0x00204060, dtype=torch.int32)
-    words[-1] = smooth | -(1 << 24)                  # one flat frame
-    pals, palw, diffs = _libsixel_inputs(words)
-    diffs[-1] = 0                                    # palette only
-    tables = tlib.build_bucket_tables_plain(pals)
+    if random:
+        rng = np.random.default_rng(h * w + b)
+        tables = torch.from_numpy(rng.integers(0, 256, (b, tlib.N_BUCKETS),
+                                               dtype=np.uint8))
+        palw = tlib.palette_words(torch.from_numpy(
+            rng.integers(0, 256, (b, 256, 3), dtype=np.int32)))
+        diffs = torch.ones(b, dtype=torch.int32)
+        diffs[-1] = int(b == 1)                      # palette only
+    else:
+        smooth = torch.full((h, w), 0x00204060, dtype=torch.int32)
+        words[-1] = smooth | -(1 << 24)              # one flat frame
+        pals, palw, diffs = _libsixel_inputs(words)
+        diffs[-1] = 0                                # palette only
+        tables = tlib.build_bucket_tables_plain(pals)
     want = tlib.fs_dither_table_plain(words, tables, palw, diffs, h, w)
     got = tlib.fs_dither_table_cuda(words.to(cuda_device), tables, palw,
                                     diffs, h, w)

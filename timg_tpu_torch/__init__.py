@@ -34,13 +34,14 @@ Layer map (entry point down to the device):
   ops/resize.py          -- video tap tables + plain torch resize;
                             stb-exact RGBA resize (torch ops)
   ops/compose.py         -- alpha compose against the background
-  ops/resize_kernel.py   -- CUDA resize kernel (csrc/resize_words.cu)
+  ops/resize_kernel.py   -- CUDA resize kernels (csrc/resize_words.cu;
+                            csrc/resize_passes.cu where no tile fits)
   ops/sixel.py           -- cube constants; 3-channel dither entry points
-  ops/sixel_kernel.py    -- CUDA FS dither with f32 carries, cube and
+  ops/sixel_kernel.py    -- CUDA FS wavefront driver (csrc/fs_dither_cube.cu)
+                            and its band plan; f32 carries, cube and
                             median-cut tree, on words or bytes
-                            (csrc/fs_dither_cube.cu)
-  ops/libsixel_kernel.py -- CUDA bucket tables and libsixel integer FS
-                            (csrc/bucket_tables.cu, csrc/fs_dither_table.cu)
+  ops/libsixel_kernel.py -- CUDA bucket tables (csrc/bucket_tables.cu) and
+                            libsixel integer FS (the same driver)
   ops/{sixel_np,libsixel_quant,resize_np,_resize_weights}.py
                          -- host numpy: median-cut tree, libsixel palette,
                             stb taps and pass order

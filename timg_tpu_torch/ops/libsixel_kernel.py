@@ -7,8 +7,10 @@ the reference, no Pallas kernel): per frame, the nearest palette index
 of each 15-bit bucket's base color, first minimum winning
 (csrc/bucket_tables.cu).  ``fs_dither_table_fused`` replaces
 ``fs_dither_table_fused`` (K8) with its layout kernels: libsixel's
-integer error diffusion, the index looked up in the frame's table
-(csrc/fs_dither_table.cu).  The numpy specification of both is
+integer error diffusion, the index looked up in the frame's table, as
+one instantiation of the wavefront driver that the f32 dithers share
+(csrc/fs_dither_cube.cu, ``TableQuant``; banded by
+``sixel_kernel.plan_bands``).  The numpy specification of both is
 timg_tpu/ops/libsixel_quant.py (``build_bucket_table``,
 ``apply_palette_bucket_table``).
 
@@ -26,8 +28,9 @@ import numpy as np
 import torch
 
 from timg_tpu_torch.ops import _build
-from timg_tpu_torch.ops.sixel_kernel import (_as_words, _pitched_words,
-                                             wavefront_plain, word_planes)
+from timg_tpu_torch.ops.sixel_kernel import (_as_words, _launch,
+                                             _pitched_words, wavefront_plain,
+                                             word_planes)
 
 BUCKET_LAUNCHES = 0   # bucket_tables launches
 TABLE_LAUNCHES = 0    # fs_dither_table launches
@@ -46,9 +49,6 @@ def _lib():
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.timg_bucket_tables.argtypes = [p, i, p, p]
         lib.timg_bucket_tables.restype = ctypes.c_int
-        lib.timg_fs_dither_table.argtypes = [p, i, i, i, i, i, p, p, p, p,
-                                             i, p]
-        lib.timg_fs_dither_table.restype = ctypes.c_int
         _bound = lib
     return _bound
 
@@ -172,7 +172,7 @@ def fs_dither_table_cuda(frames: torch.Tensor, tables: torch.Tensor,
                          ) -> torch.Tensor:
     """The CUDA kernel: [B, >=h, >=w] int32 CUDA words, [B, 32768] uint8
     tables, [B, 256] int32 palette words, [B] diffuse flags -> [B, h, w]
-    indices."""
+    indices (the driver's band plan, as the f32 dithers take it)."""
     global TABLE_LAUNCHES
     words = _pitched_words(frames, h, w, "fs_dither_table_cuda")
     b, ph, pw = words.shape
@@ -186,14 +186,8 @@ def fs_dither_table_cuda(frames: torch.Tensor, tables: torch.Tensor,
         raise ValueError("fs_dither_table_cuda: tables [B, 32768], palette "
                          "words [B, 256] and diffuse flags [B] must match "
                          "the batch")
-    out = torch.empty((b, h, w), dtype=torch.uint8 if out_u8 else torch.int32,
-                      device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    ptr = lambda t: ctypes.c_void_p(t.data_ptr())
-    _build.check(_lib().timg_fs_dither_table(
-        ptr(words), b, h, w, ph, pw, ptr(tables), ptr(pal_words),
-        ptr(diffuse), ptr(out), int(out_u8), ctypes.c_void_p(stream)),
-        "fs_dither_table")
+    out = _launch("table", [words, b, h, w, ph, pw, tables, pal_words,
+                            diffuse], b, h, w, dev, out_u8)
     TABLE_LAUNCHES += 1
     return out
 

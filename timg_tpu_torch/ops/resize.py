@@ -94,6 +94,50 @@ def vertical_first(in_h: int, in_w: int, out_h: int, out_w: int) -> bool:
                        STB_DOWNSAMPLE_FILTER, False)
 
 
+def order_blocks(starts: torch.Tensor, width: int) -> int:
+    """The most order blocks (of ORDER_BLOCK inputs, aligned on the input
+    index) that one band of ``width`` taps from ``starts`` touches."""
+    s = starts.numpy().astype(np.int64)
+    return int(((s + width - 1) // ORDER_BLOCK - s // ORDER_BLOCK).max()) + 1
+
+
+def slot_taps(starts: torch.Tensor, taps: torch.Tensor, in_size: int):
+    """The taps of the two-pass route's pass along rows
+    (csrc/resize_passes.cu ``resize_rows_to_mid``), laid out for the
+    thread of order block j and parity p: ``(taps [nb, 2, slots, 16] f32,
+    dst [nb, slots] int32, nb_max)``, nb = ceil(in / 32).  Slot m of block
+    j is the m-th output o whose band covers block j; ``taps[j, p, m, i]``
+    is its tap of input
+    ``32 j + p + 2i``, +0 outside the band (or where no output is in the
+    slot), so the thread's sum over i equals the reference's sum that
+    skips those inputs (``ORDER_BLOCK``'s split; csrc/resize_passes.cu
+    says why a +0 product changes no bit).  ``dst[j, m]`` is the index of
+    the slot's (E, O) pair of channel 0 in a row's block sums
+    ``[out, 3, nb_max, 2]`` (``2 (3 nb_max o + j - starts[o] // 32)``),
+    -1 for an empty slot; ``nb_max`` is ``order_blocks``."""
+    s = starts.numpy().astype(np.int64)
+    t = taps.to(torch.float32).numpy()
+    out_n, width = t.shape
+    jfirst = s // ORDER_BLOCK
+    jlast = (s + width - 1) // ORDER_BLOCK
+    nb_max = order_blocks(starts, width)
+    nb = -(-in_size // ORDER_BLOCK)
+    cover = [[o for o in range(out_n) if jfirst[o] <= j <= jlast[o]]
+             for j in range(nb)]
+    slots = max(1, max(len(c) for c in cover))
+    taps16 = np.zeros((nb, 2, slots, ORDER_BLOCK // 2), np.float32)
+    dst = np.full((nb, slots), -1, np.int32)
+    i2 = 2 * np.arange(ORDER_BLOCK // 2)
+    for j, outs in enumerate(cover):
+        for m, o in enumerate(outs):
+            dst[j, m] = 2 * (3 * nb_max * o + j - jfirst[o])
+            for p in (0, 1):
+                rel = ORDER_BLOCK * j + p + i2 - s[o]
+                inside = (rel >= 0) & (rel < width)
+                taps16[j, p, m, inside] = t[o, rel[inside]]
+    return torch.from_numpy(taps16), torch.from_numpy(dst), nb_max
+
+
 def first_flush(start: int) -> int:
     """The tap index t at which the reference order first adds a block's
     ``even + odd`` to the running total, for an output whose taps start

@@ -50,8 +50,23 @@ MIN_WARPS = 4
 MAX_ROWS = 4096
 CHUNK = 8                    # steps a chunk of the driver's step loop
 CARRY_INTS = 8               # int32 words of one step's carry (Carry)
+RING_STEPS = 64              # steps of a shared warp-edge ring (kRing)
 REGISTERS_PER_SM = 65536
 REGISTERS_PER_THREAD = 128
+SMEM_PER_BLOCK = 232448      # the most a Hopper block can opt in to
+# bytes of each quantizer's tables in a block's shared memory
+# (kTableInts * 4): the tree's node pairs and leaves; libsixel's bucket
+# table and palette words
+QUANT_TABLE_BYTES = {"cube": 0, "tree": 4 * (2 * 8 * 128 + 256),
+                     "table": (1 << 15) + 4 * 256}
+
+
+def block_smem_bytes(quant: str, warps: int) -> int:
+    """Dynamic shared memory of one block of the driver: the quantizer's
+    tables, then per warp a ring of RING_STEPS carries and the step its
+    reader has reached."""
+    return QUANT_TABLE_BYTES[quant] + warps * (RING_STEPS * CARRY_INTS * 4
+                                               + 4)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -110,14 +125,21 @@ def _lib():
                                                 i] + band
         lib.timg_fs_dither_tree_rgb.argtypes = [p, i, i, i, i, i, i, p, p,
                                                 p, i] + band
-        for fn in ("cube", "tree", "cube_rgb", "tree_rgb", "cube_max_rows",
-                   "max_warps", "chunk"):
+        lib.timg_fs_dither_table.argtypes = [p, i, i, i, i, i, p, p, p, p,
+                                             i] + band
+        for fn in ("cube", "tree", "cube_rgb", "tree_rgb", "table",
+                   "cube_max_rows", "max_warps", "chunk", "smem_bytes"):
             getattr(lib, f"timg_fs_dither_{fn}").restype = ctypes.c_int
         for fn in ("cube_max_rows", "max_warps", "chunk"):
             getattr(lib, f"timg_fs_dither_{fn}").argtypes = []
+        lib.timg_fs_dither_smem_bytes.argtypes = [i, i]
+        smem = [lib.timg_fs_dither_smem_bytes(q, MAX_WARPS)
+                for q in range(len(QUANT_TABLE_BYTES))]
         if (lib.timg_fs_dither_max_warps(), lib.timg_fs_dither_chunk(),
-                lib.timg_fs_dither_cube_max_rows()) != (MAX_WARPS, CHUNK,
-                                                        MAX_ROWS):
+                lib.timg_fs_dither_cube_max_rows(), smem) != (
+                    MAX_WARPS, CHUNK, MAX_ROWS,
+                    [block_smem_bytes(q, MAX_WARPS)
+                     for q in QUANT_TABLE_BYTES]):
             raise RuntimeError("csrc/fs_dither_cube.cu and ops/sixel_kernel"
                                ".py disagree on the band plan's limits")
         _bound = lib
