@@ -2,6 +2,8 @@
 """Smoke run of the PyTorch/CUDA port (timg_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --bucket-times CHECKOUT   # the bucket build of
+                                                    # another checkout
 
 Needs one CUDA card, nvcc and g++; exits non-zero without them.  Imports
 only the port (timg_tpu_torch), never jax or the JAX package.  Phases:
@@ -12,25 +14,30 @@ only the port (timg_tpu_torch), never jax or the JAX package.  Phases:
    timg_tpu_torch/native/ (g++: the C sixel assembler, which must build,
    and the libav video decoder, which builds only where libav exists);
 2. kernels: a seeded window of 32 frames of 1080p 4:2:0 video, converted
-   on the card and resized to 720x1280 by the resize kernel (also timed
-   at the CLI's 8-frame window, split by torch.profiler, and checked and
-   timed on 8 seeded frames of 2160x3840, which the two-pass route also
-   resizes into 16x28 pixels, a geometry no fused tile fits, split by
+   on the card by the convert kernel (byte-equal to its plain version in
+   both ranges, timed at 32 and at the CLI's 8 frames, split by
+   torch.profiler) and resized to 720x1280 by the resize kernel (also
+   timed at the CLI's 8-frame window, split by torch.profiler, and checked
+   and timed on 8 seeded frames of 2160x3840, which the two-pass route
+   also resizes into 16x28 pixels, a geometry no fused tile fits, split by
    torch.profiler into its two passes beside the band matmuls), then
-   dithered at 720 rows and at 722 rows padded to 726 with background
-   rows by each dither kernel: FS cube on words (K6) and on bytes (K9,
-   3 and 4 channels); libsixel (per-frame palettes from the host, with
-   one flat frame whose diffuse flag is 0, the bucket-table build and
-   the table dither); and the median-cut tree on words (K7) and on
-   bytes.  The wavefront driver is also checked and timed at the
-   batches the main paths launch besides 32: K6, K7 and K8 at the CLI's
-   8-frame window, K9 and the byte tree at one frame (the library's
-   per-frame loop), and K6, K7 and K8 on 32 rows (one warp alone), each
-   with its time a serial step.  Each kernel must equal its plain PyTorch version byte for
-   byte (the resize's on CPU copies, the others' on the card); all are
-   timed with CUDA events beside their bound (bytes over 3.35 TB/s or
-   operations over 67 TFLOP/s, whichever is larger) and, where one
-   PyTorch call computes the same function, that call's time;
+   dithered at 720 rows and at 722 rows padded to 726 with background rows
+   by each dither kernel: FS cube on words (K6) and on bytes (K9, 3 and 4
+   channels); libsixel (per-frame palettes from the host, with one flat
+   frame whose diffuse flag is 0, the bucket-table build, also timed at 8
+   frames, and the table dither); and the
+   median-cut tree on words (K7) and on bytes. The wavefront driver is
+   also checked and timed at the batches the main paths launch besides 32:
+   K6, K7 and K8 at the CLI's 8-frame window, K9 and the byte tree at one
+   frame (the library's per-frame loop), and K6, K7 and K8 on 32 rows (one
+   warp alone), each with its time a serial step. Each kernel must equal
+   its plain PyTorch version byte for byte (the resize's on CPU copies,
+   the others' on the card); all are timed with CUDA events (the bucket
+   build, shorter than its launch on the host, around a CUDA graph of
+   calls) beside their bound (bytes over 3.35 TB/s or operations over 67
+   TFLOP/s, the bucket build's integer mins over 16.7 TOP/s, whichever is
+   larger) and, where one PyTorch call computes the same function, that
+   call's time;
 3. video main path: 1080p windows through the port's VideoSource window
    (convert -> resize -> dither on the card -> plane fetch ->
    SixelCanvas assembly), as the CLI runs `-g160x48 -ps --dither=MODE
@@ -83,7 +90,9 @@ LIB_RUNS = {"cube": ("cube", False, "rgba"),
             "yuv": ("cube", False, "yuv")}
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 F32_OPS_PER_S = 67e12       # float32 outside the tensor cores; also used
-                            # for the int32 ALU work of the libsixel kernels
+                            # for the int32 work of the table dither (K8)
+# int32 min/max: 64 lanes an SM (half the f32 rate) x 132 SMs x 1.98 GHz
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
 # operations a pixel of each dither kernel, counted from
 # csrc/fs_dither_cube.cu.  f32 policy: the row-above mix (15), the
 # incoming sum and clip (15), the error (3) and the quantizer (cube: 18
@@ -196,6 +205,29 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(stop) / iters
 
 
+def graph_ms(fn, iters: int = 20) -> float:
+    """Device time a call of fn, for a kernel shorter than its launch
+    from Python (CUDA events over back-to-back calls would time the
+    host): CUDA events around one replay of a CUDA graph of iters
+    calls."""
+    import torch
+
+    fn()                                             # warm-up
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()                                   # warm-up
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / iters
+
+
 def max_abs_err(a, b) -> int:
     """Largest absolute difference, per byte channel of RGBA words."""
     import torch
@@ -206,11 +238,13 @@ def max_abs_err(a, b) -> int:
     return int((a.long() - b.long()).abs().max())
 
 
-def bound(nbytes: float, nops: float) -> dict:
+def bound(nbytes: float, nops: float, ops_per_s: float = F32_OPS_PER_S
+          ) -> dict:
     """The least time the card could take: the larger of the bytes over
-    the HBM rate and the operations over the f32 peak."""
+    the HBM rate and the operations over their peak rate (f32 unless
+    given)."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = nops / F32_OPS_PER_S * 1e3
+    t_ops = nops / ops_per_s * 1e3
     if t_bytes >= t_ops:
         return dict(bound_ms=t_bytes, bound_by="bytes")
     return dict(bound_ms=t_ops, bound_by="operations")
@@ -227,21 +261,18 @@ def check_equal(what: str, got, want) -> int:
     return max_abs_err(got, want)
 
 
-def resize_profile(words, out_h: int = OUT_H, out_w: int = OUT_W) -> dict:
-    """torch.profiler's device time of each kernel and copy in a resize
-    call to out_h x out_w, per call: the mean over the calls the profiler
-    recorded of 3 (it may drop some); prints one line each and returns
-    {name: ms}."""
+def device_profile(fn, what: str) -> dict:
+    """torch.profiler's device time of each kernel and copy in a call of
+    fn, per call: the mean over the calls the profiler recorded of 3 (it
+    may drop some); prints one line each and returns {name: ms}."""
     import torch
 
-    from timg_tpu_torch.ops import resize_kernel
-
-    resize_kernel.resize_video_words_cuda(words, out_h, out_w)   # warm-up
+    fn()                                             # warm-up
     torch.cuda.synchronize()
     act = torch.profiler.ProfilerActivity
     with torch.profiler.profile(activities=[act.CPU, act.CUDA]) as prof:
         for _ in range(3):
-            resize_kernel.resize_video_words_cuda(words, out_h, out_w)
+            fn()
         torch.cuda.synchronize()
     split = {}
     for e in prof.key_averages():
@@ -250,11 +281,57 @@ def resize_profile(words, out_h: int = OUT_H, out_w: int = OUT_W) -> dict:
         if us > 0 and not e.key.startswith("aten::"):   # an aten op's
             split[e.key] = us / max(e.count, 1) / 1000.0   # is its kernels'
     if not split:
-        print("kernels: resize profile: torch.profiler saw no device time")
+        print(f"kernels: {what} profile: torch.profiler saw no device time")
     for key, ms in sorted(split.items(), key=lambda kv: -kv[1]):
-        print(f"kernels: resize profile, B={words.shape[0]} -> {out_h}x"
-              f"{out_w}: {ms:.6f} ms a call of device time in {key}")
+        print(f"kernels: {what} profile: {ms:.6f} ms a call of device time "
+              f"in {key}")
     return split
+
+
+def convert_phase(planes) -> tuple:
+    """The convert kernel on the window's planes: byte-equal to its plain
+    version (on the card) in both ranges, timed at B=32 and B=8 beside
+    its byte bound and the plain chain, and split by torch.profiler,
+    where it must show one kernel.  Returns (limited-range words,
+    results)."""
+    import torch
+
+    from timg_tpu_torch.ops import yuv_kernel
+    from timg_tpu_torch.ops.yuv import yuv420_to_rgba_words_plain
+
+    errs = []
+    for full_range in (True, False):
+        words = yuv_kernel.yuv420_to_rgba_words_cuda(*planes, full_range)
+        torch.cuda.synchronize()
+        errs.append(check_equal(
+            f"yuv420_to_rgba_words (full_range={full_range})", words,
+            yuv420_to_rgba_words_plain(*planes, full_range)))
+    print(f"kernels: yuv420_to_rgba_words {IN_H}x{IN_W}, B={N_KERNEL}, both "
+          "ranges: equal to plain")
+
+    def nbytes(b):   # Y and both chroma planes in, the words out
+        return b * (IN_H * IN_W * 5 + 2 * (IN_H // 2) * (IN_W // 2))
+
+    r = dict(max_abs_err=max(errs),
+             ms=cuda_ms(lambda: yuv_kernel.yuv420_to_rgba_words_cuda(
+                 *planes, False), 20),
+             plain_ms=cuda_ms(lambda: yuv420_to_rgba_words_plain(
+                 *planes, False), 3),
+             library_ms=None,     # no PyTorch call computes it
+             **bound(nbytes(N_KERNEL), 0))
+    window = [p[:N_WINDOW] for p in planes]
+    ms = cuda_ms(lambda: yuv_kernel.yuv420_to_rgba_words_cuda(
+        *window, False), 20)
+    plain = cuda_ms(lambda: yuv420_to_rgba_words_plain(*window, False), 3)
+    print(f"kernels: yuv420_to_rgba_words at the CLI's window, B={N_WINDOW}:"
+          f" {ms:.6f} ms, plain {plain:.6f} ms, bound "
+          f"{bound(nbytes(N_WINDOW), 0)['bound_ms']:.6f} ms (bytes)")
+    split = device_profile(
+        lambda: yuv_kernel.yuv420_to_rgba_words_cuda(*window, False),
+        f"yuv420_to_rgba_words, B={N_WINDOW}")
+    if len(split) > 1:
+        fail(f"the convert ran {len(split)} device kernels a call, not one")
+    return words, r
 
 
 def resize_4k(dev) -> None:
@@ -337,7 +414,8 @@ def resize_passes(words, words_cpu) -> dict:
           f"B={N_WINDOW}: equal to plain (CPU); {r['ms']:.6f} ms, bound "
           f"{r['bound_ms']:.6f} ms ({r['bound_by']}), band matmuls "
           f"{r['library_ms']:.6f} ms")
-    resize_profile(words, oh, ow)
+    device_profile(lambda: resize_kernel.resize_video_words_cuda(
+        words, oh, ow), f"resize, B={N_WINDOW} -> {oh}x{ow}")
     return r
 
 
@@ -352,14 +430,13 @@ def kernel_phase(dev):
                                            resize_video_words_plain,
                                            vertical_first)
     from timg_tpu_torch.ops.sixel_np import median_cut_tree
-    from timg_tpu_torch.ops.yuv import yuv420_to_rgba_words
 
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     ys, us, vs = yuv_frames(N_KERNEL, SEED)
     planes = [torch.from_numpy(p).to(dev) for p in (ys, us, vs)]
-    words = yuv420_to_rgba_words(*planes, False)
-    torch.cuda.synchronize()
     results = {}
+    words, results["convert"] = convert_phase(planes)
+    del planes
 
     # resize: kernel vs the plain version on CPU copies, 1080p -> 720 and
     # -> 722 rows (the height a 722-row terminal area would ask for)
@@ -405,7 +482,8 @@ def kernel_phase(dev):
     print(f"kernels: resize at the CLI's window, B={N_WINDOW}: {ms:.6f} ms, "
           f"bound {b:.6f} ms (bytes)")
     del window
-    resize_profile(words)
+    device_profile(lambda: resize_kernel.resize_video_words_cuda(
+        words, OUT_H, OUT_W), f"resize, B={N_KERNEL} -> {OUT_H}x{OUT_W}")
     results["resize_passes"] = resize_passes(*resize_4k(dev))
 
     # the dithers' two inputs: 720 rows (a multiple of 6: no pad), and
@@ -488,14 +566,23 @@ def kernel_phase(dev):
     print(f"kernels: bucket_tables B={N_KERNEL}: equal to plain")
     bases = lib.bucket_bases(dev).to(torch.float32)
     pals_f32 = pals.to(torch.float32)
+    # the least work of the function: one int32 min per (key, entry)
+
+    def bucket_bound(b):
+        return bound(b * (lib.PALETTE_SIZE * 3 * 4 + lib.N_BUCKETS),
+                     b * lib.N_BUCKETS * lib.PALETTE_SIZE, INT32_OPS_PER_S)
+
+    times = bucket_times(pals)
     results["bucket"] = dict(
         max_abs_err=err,
-        ms=cuda_ms(lambda: lib.build_bucket_tables_cuda(pals), 20),
+        ms=times[N_KERNEL],
         plain_ms=cuda_ms(lambda: lib.build_bucket_tables_plain(pals), 3),
         library_ms=cuda_ms(lambda: torch.cdist(
             bases.expand(N_KERNEL, -1, -1), pals_f32).argmin(dim=2), 3),
-        **bound(N_KERNEL * (lib.PALETTE_SIZE * 3 * 4 + lib.N_BUCKETS),
-                N_KERNEL * lib.N_BUCKETS * lib.PALETTE_SIZE * 10))
+        **bucket_bound(N_KERNEL))
+    print(f"kernels: bucket_tables at the CLI's window, B={N_WINDOW}: "
+          f"{times[N_WINDOW]:.6f} ms, bound "
+          f"{bucket_bound(N_WINDOW)['bound_ms']:.6f} ms (operations)")
 
     palw = lib.palette_words(pals)
     errs = []
@@ -618,6 +705,28 @@ def kernel_phase(dev):
     return results
 
 
+def bucket_times(pals) -> dict:
+    """The bucket build of the imported timg_tpu_torch on [32, 256, 3]
+    CUDA palettes at B=8 and B=32: byte-equal to its plain version, timed
+    by ``graph_ms`` and split by torch.profiler.  ``--bucket-times
+    CHECKOUT`` runs this on seeded palettes with another checkout's
+    package, e.g. the parent commit's.  Returns {B: ms}."""
+    from timg_tpu_torch.ops import libsixel_kernel as lib
+
+    where = os.path.dirname(os.path.dirname(os.path.dirname(lib.__file__)))
+    times = {}
+    for b in (N_WINDOW, N_KERNEL):
+        p = pals[:b].contiguous()
+        check_equal(f"bucket_tables B={b}", lib.build_bucket_tables_cuda(p),
+                    lib.build_bucket_tables_plain(p))
+        times[b] = graph_ms(lambda: lib.build_bucket_tables_cuda(p))
+        device_profile(lambda: lib.build_bucket_tables_cuda(p),
+                       f"bucket_tables B={b}")
+        print(f"kernels: bucket_tables of {where}, B={b}: equal to plain; "
+              f"{times[b]:.6f} ms a call in a CUDA graph")
+    return times
+
+
 def steps(h: int) -> int:
     """Serial steps of an FS wavefront of h rows at the output width."""
     return OUT_W + 2 * (h - 1)
@@ -705,11 +814,12 @@ def library_stages(dev) -> None:
           "(host clock)")
 
 
-PATH_KERNELS = {"cube": ("resize", "dither"),
-                "libsixel": ("resize", "bucket", "table"),
-                "adaptive": ("resize", "tree")}
+PATH_KERNELS = {"cube": ("convert", "resize", "dither"),
+                "libsixel": ("convert", "resize", "bucket", "table"),
+                "adaptive": ("convert", "resize", "tree")}
 LIB_KERNELS = {"cube": ("cube_rgb",), "adaptive": ("tree_rgb",),
-               "adaptive_reuse": ("tree_rgb",), "yuv": ("resize", "cube_rgb")}
+               "adaptive_reuse": ("tree_rgb",),
+               "yuv": ("convert", "resize", "cube_rgb")}
 
 
 def build_native():
@@ -732,6 +842,18 @@ def main() -> int:
         sys.path.insert(0, REPO)
         sys.stdout.buffer.write(main_path_stream(sys.argv[2],
                                                  int(sys.argv[3])))
+        return 0
+    if len(sys.argv) == 3 and sys.argv[1] == "--bucket-times":
+        # the bucket build of the checkout at argv[2] (another commit's)
+        import numpy as np
+        import torch
+
+        sys.path.insert(0, os.path.abspath(sys.argv[2]))
+        if not torch.cuda.is_available():
+            fail("torch.cuda.is_available() is false: needs an NVIDIA GPU")
+        rng = np.random.default_rng(SEED + 5)
+        bucket_times(torch.from_numpy(rng.integers(
+            0, 256, (N_KERNEL, 256, 3)).astype(np.int32)).to("cuda"))
         return 0
     if len(sys.argv) == 2 and sys.argv[1] == "--library-payloads":
         # child of the library phase: every run on the CPU
@@ -762,9 +884,10 @@ def main() -> int:
     from concurrent.futures import ThreadPoolExecutor
 
     from timg_tpu_torch.ops import (_build, libsixel_kernel, resize_kernel,
-                                    sixel_kernel)
+                                    sixel_kernel, yuv_kernel)
     from timg_tpu_torch.render import sixel_render
     counters = {   # kernel -> (module, its launch counter)
+        "convert": (yuv_kernel, "LAUNCHES"),
         "resize": (resize_kernel, "LAUNCHES"),
         "resize_passes": (resize_kernel, "PASS_LAUNCHES"),
         "dither": (sixel_kernel, "LAUNCHES"),
@@ -892,6 +1015,7 @@ def main() -> int:
                 child.wait()
 
     entries = [
+        ("yuv420_to_rgba", "convert", "yuv420.cu", "timg_tpu/ops/yuv.py:109"),
         ("resize_words", "resize", "resize_words.cu",
          "timg_tpu/ops/resize_pallas.py:227"),
         ("resize_passes", "resize_passes", "resize_passes.cu",

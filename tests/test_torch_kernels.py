@@ -16,7 +16,8 @@ torch = pytest.importorskip("torch")
 from timg_tpu_torch.ops import libsixel_kernel as tlib  # noqa: E402
 from timg_tpu_torch.ops import libsixel_quant as lsq  # noqa: E402
 from timg_tpu_torch.ops import resize as tresize  # noqa: E402
-from timg_tpu_torch.ops import sixel_kernel  # noqa: E402
+from timg_tpu_torch.ops import sixel_kernel, yuv_kernel  # noqa: E402
+from timg_tpu_torch.ops import yuv as tyuv  # noqa: E402
 from timg_tpu_torch.ops.sixel_np import median_cut_tree  # noqa: E402
 
 
@@ -51,7 +52,22 @@ def _tree(words):
     return torch.from_numpy(levels), torch.from_numpy(leaves)
 
 
+def _yuv_planes(seed, b, h, w, ch=None, cw=None):
+    """Seeded uint8 planes: [b, h, w] y and [b, ch, cw] u, v (by default
+    ceil(h / 2) x ceil(w / 2))."""
+    rng = np.random.default_rng(seed)
+    ch = (h + 1) // 2 if ch is None else ch
+    cw = (w + 1) // 2 if cw is None else cw
+    return tuple(torch.from_numpy(rng.integers(0, 256, s, dtype=np.uint8))
+                 for s in ((b, h, w), (b, ch, cw), (b, ch, cw)))
+
+
 def test_cpu_tensors_take_the_plain_versions():
+    y, u, v = _yuv_planes(0, 2, 9, 13)
+    for full_range in (False, True):
+        assert torch.equal(tyuv.yuv420_to_rgba_words(y, u, v, full_range),
+                           tyuv.yuv420_to_rgba_words_plain(y, u, v,
+                                                           full_range))
     words = _words(1, 2, 30, 40)
     assert torch.equal(tresize.resize_video_words(words, 20, 24),
                        tresize.resize_video_words_plain(words, 20, 24))
@@ -75,7 +91,8 @@ def test_cpu_tensors_take_the_plain_versions():
         sixel_kernel.fs_dither_tree_rgb_plain(rgb, levels, leaves, 30, 40))
     assert (tlib.BUCKET_LAUNCHES, tlib.TABLE_LAUNCHES,
             sixel_kernel.TREE_LAUNCHES, sixel_kernel.RGB_LAUNCHES,
-            sixel_kernel.TREE_RGB_LAUNCHES) == (0, 0, 0, 0, 0)
+            sixel_kernel.TREE_RGB_LAUNCHES,
+            yuv_kernel.LAUNCHES) == (0, 0, 0, 0, 0, 0)
 
 
 def test_resize_identity_returns_input():
@@ -104,6 +121,10 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError):
         tlib.fs_dither_table_cuda(words, tlib.build_bucket_tables(pals),
                                   palw, diffs, 12, 16)
+    with pytest.raises(ValueError):
+        yuv_kernel.yuv420_to_rgba_words_cuda(*_yuv_planes(4, 1, 12, 16),
+                                             False)
+    assert yuv_kernel.LAUNCHES == 0
 
 
 def test_dither_rejects_bad_input():
@@ -444,6 +465,191 @@ def test_bucket_kernel_matches_plain(cuda_device, b, seed):
     got = tlib.build_bucket_tables_cuda(pals.to(cuda_device))
     torch.cuda.synchronize()
     assert torch.equal(got.cpu(), want)
+
+
+BUCKET_PALETTES = ["random", "ties", "tails", "zeros", "full"]
+INT32 = np.iinfo(np.int32)
+
+
+def _bucket_palettes(kind, b, seed):
+    """[b, 256, 3] int32 palettes: random; tie-heavy (duplicated entries
+    and equidistant pairs around bucket bases); short ones padded with
+    their first color, as the video window pads them; all 0; all 255."""
+    rng = np.random.default_rng(seed)
+    if kind == "random":
+        return rng.integers(0, 256, (b, 256, 3)).astype(np.int32)
+    if kind == "ties":
+        pals = rng.integers(0, 32, (b, 256, 3)).astype(np.int32) * 8
+        pals[:, 128:] = pals[:, :128]
+        pals[:, 1::2] = np.clip(pals[:, 0::2] + 8, 0, 255)
+        return pals
+    if kind == "tails":
+        return tlib.pad_palettes([
+            rng.integers(0, 256, ((1, 17, 200)[i % 3], 3)).astype(np.uint8)
+            for i in range(b)])
+    return np.full((b, 256, 3), 0 if kind == "zeros" else 255, np.int32)
+
+
+def _packed_bucket_table(pal, split):
+    """numpy emulation of csrc/bucket_tables.cu on one [256, 3] palette:
+    per (r5, g5) row and split lane, the min over the lane's entries of
+    v = 256 |p|^2 + i - 4096 (r5 pr + g5 pg + b5 pb) for b5 = 0..31;
+    then the lanes' reduce-scatter (at each stage the lane with the
+    stage's bit keeps the upper half) and each lane's keys written at its
+    offset.  Asserts that every packed value fits int32."""
+    p = pal.astype(np.int64)
+    ent = np.stack([(p * p).sum(1) * 256 + np.arange(256), -4096 * p[:, 0],
+                    -4096 * p[:, 1], -4096 * p[:, 2]], 1)
+    rows = np.arange(1024)
+    r5, g5, b5 = rows[:, None] >> 5, rows[:, None] & 31, np.arange(32)
+    m = []
+    for part in range(split):
+        e = ent[part::split]
+        base = e[None, :, 0] + r5 * e[None, :, 1] + g5 * e[None, :, 2]
+        packed = base[:, None, :] + b5[None, :, None] * e[None, None, :, 3]
+        assert INT32.min <= packed.min() and packed.max() <= INT32.max
+        m.append(packed.min(axis=2))                      # [1024, 32]
+    first = [0] * split
+    half, bit = 16, 1
+    while bit < split:
+        kept = []
+        for part in range(split):
+            hi = (part & bit) != 0
+            cut = slice(half, 2 * half) if hi else slice(0, half)
+            kept.append(np.minimum(m[part][:, cut], m[part ^ bit][:, cut]))
+            first[part] += half if hi else 0
+        m, half, bit = kept, half // 2, bit * 2
+    out = np.zeros((1024, 32), np.int64)
+    written = np.zeros((1024, 32), bool)
+    for part in range(split):
+        keys = slice(first[part], first[part] + 32 // split)
+        assert not written[:, keys].any()
+        out[:, keys], written[:, keys] = m[part], True
+    assert written.all()
+    return (out & 0xFF).astype(np.uint8).reshape(-1)
+
+
+@pytest.mark.parametrize("split", [1, 2, 4, 8])
+@pytest.mark.parametrize("kind", BUCKET_PALETTES)
+def test_packed_bucket_min_matches_spec(kind, split):
+    """The kernel's exact separable form, emulated in numpy, equals
+    libsixel's bucket table (integer distances, first minimum) with the
+    palette split over 1, 2, 4 (the kernel's) and 8 lanes."""
+    for pal in _bucket_palettes(kind, 2, BUCKET_PALETTES.index(kind)):
+        np.testing.assert_array_equal(_packed_bucket_table(pal, split),
+                                      lsq.build_bucket_table(pal))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 8, 32])
+@pytest.mark.parametrize("kind", BUCKET_PALETTES)
+def test_bucket_kernel_palettes_match_plain(cuda_device, kind, b):
+    pals = torch.from_numpy(_bucket_palettes(kind, b, b))
+    want = tlib.build_bucket_tables_plain(pals)
+    before = tlib.BUCKET_LAUNCHES
+    got = tlib.build_bucket_tables_cuda(pals.to(cuda_device))
+    torch.cuda.synchronize()
+    assert tlib.BUCKET_LAUNCHES == before + 1
+    assert torch.equal(got.cpu(), want)
+
+
+_BT601 = {False: (76309, 104597, 25675, 53279, 132201, 16),
+          True: (65536, 91881, 22554, 46802, 116130, 0)}
+
+
+def _convert_threads(y, u, v, full_range):
+    """numpy emulation of csrc/yuv420.cu: each thread's 8 words of a row
+    from the 6 chroma columns j0 - 1 .. j0 + 4 it reads (clamped to the
+    planes' own edges), the vertical stage once a column, then per pixel
+    the horizontal stage and BT.601, all int32."""
+    cy, crv, cgu, cgv, cbu, y0 = _BT601[full_range]
+    y, u, v = (np.asarray(t).astype(np.int32) for t in (y, u, v))
+    b, h, w = y.shape
+    ch, cw = u.shape[1:]
+    r = np.arange(h) >> 1
+    rn = np.where(np.arange(h) & 1, np.minimum(r + 1, ch - 1),
+                  np.maximum(r - 1, 0))
+
+    def fin(x):
+        return np.clip((x + 32768) >> 16, 0, 255)
+
+    out = np.zeros((b, h, w), np.int32)
+    for x0 in range(0, w, 8):
+        cols = np.clip(x0 // 2 - 1 + np.arange(6), 0, cw - 1)
+        cu, cv = ((3 * c[:, r][:, :, cols] + c[:, rn][:, :, cols] + 2) >> 2
+                  for c in (u, v))                          # [b, h, 6]
+        for k in range(min(8, w - x0)):
+            c = k // 2 + 1
+            nb = c + 1 if k & 1 else c - 1
+            d = ((3 * cu[..., c] + cu[..., nb] + 2) >> 2) - 128
+            e = ((3 * cv[..., c] + cv[..., nb] + 2) >> 2) - 128
+            yc = cy * (y[:, :, x0 + k] - y0)
+            out[:, :, x0 + k] = (fin(yc + crv * e)
+                                 | fin(yc - cgu * d - cgv * e) << 8
+                                 | fin(yc + cbu * d) << 16 | -(1 << 24))
+    return out
+
+
+# (b, h, w, ch, cw): chroma None is ceil(h / 2) x ceil(w / 2); the last
+# two have chroma planes larger than that (the upsample clamps at the
+# planes' own edges, then keeps h x w).
+CONVERT_CPU = [(1, 1, 1, None, None), (2, 2, 3, None, None),
+               (1, 3, 2, None, None), (2, 9, 13, None, None),
+               (1, 1079, 1919, None, None), (2, 16, 24, None, None),
+               (2, 7, 9, 6, 8), (1, 10, 17, 9, 12)]
+
+
+@pytest.mark.parametrize("full_range", [False, True])
+@pytest.mark.parametrize("b,h,w,ch,cw", CONVERT_CPU)
+def test_convert_threads_match_plain(b, h, w, ch, cw, full_range):
+    y, u, v = _yuv_planes(h * w, b, h, w, ch, cw)
+    np.testing.assert_array_equal(
+        _convert_threads(y, u, v, full_range),
+        tyuv.yuv420_to_rgba_words_plain(y, u, v, full_range).numpy())
+
+
+def test_convert_refuses_chroma_too_small():
+    y, u, v = _yuv_planes(5, 1, 8, 8, 3, 4)
+    with pytest.raises(RuntimeError):   # the plain chain cannot narrow
+        tyuv.yuv420_to_rgba_words_plain(y, u, v, False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("full_range", [False, True])
+@pytest.mark.parametrize("b,h,w,ch,cw", [
+    (2, 1080, 1920, None, None), (3, 1079, 1919, None, None),
+    (1, 1, 1, None, None), (2, 2, 3, None, None), (1, 3, 2, None, None),
+    (2, 2160, 3840, None, None), (2, 7, 9, 6, 8), (1, 33, 45, 20, 30)])
+def test_convert_kernel_matches_plain(cuda_device, b, h, w, ch, cw,
+                                      full_range):
+    y, u, v = _yuv_planes(h + w, b, h, w, ch, cw)
+    want = tyuv.yuv420_to_rgba_words_plain(y, u, v, full_range)
+    before = yuv_kernel.LAUNCHES
+    got = tyuv.yuv420_to_rgba_words(y.to(cuda_device), u.to(cuda_device),
+                                    v.to(cuda_device), full_range)
+    torch.cuda.synchronize()
+    assert yuv_kernel.LAUNCHES == before + 1
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+def test_convert_kernel_reads_noncontiguous_planes(cuda_device):
+    """Planes cut from larger ones (strided rows; transposed) and planes
+    that start at no multiple of 8 bytes (a contiguous cut of frames, so
+    the kernel reads them in place) give the plain version's words."""
+    y, u, v = _yuv_planes(6, 3, 40, 64, 24, 40)
+    cuts = [(y[1:, 3:30, 5:52], u[1:, 2:16, 3:27], v[1:, :14, 1:25]),
+            (_yuv_planes(7, 2, 30, 20)[0].transpose(1, 2),
+             *(t.transpose(1, 2) for t in _yuv_planes(8, 2, 30, 20)[1:])),
+            _yuv_planes(9, 3, 27, 47)]
+    cuts[2] = tuple(t[1:] for t in cuts[2])
+    for full_range, (y, u, v) in zip((False, True, False), cuts):
+        want = tyuv.yuv420_to_rgba_words_plain(y, u, v, full_range)
+        got = yuv_kernel.yuv420_to_rgba_words_cuda(
+            y.to(cuda_device), u.to(cuda_device), v.to(cuda_device),
+            full_range)
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), want)
 
 
 # K8 on the shared driver: its own shapes, with libsixel's palettes and

@@ -54,6 +54,30 @@ def test_yuv420_matches_jax_and_numpy(full_range, b, h, w):
     np.testing.assert_array_equal(got, want_np)
 
 
+# (b, h, w, ch, cw); chroma None is ceil(h / 2) x ceil(w / 2); the last
+# two have larger chroma planes, which every version clamps at the
+# planes' own edges before keeping h x w.
+@pytest.mark.parametrize("full_range", [False, True])
+@pytest.mark.parametrize("b,h,w,ch,cw", [
+    (1, 1, 1, None, None), (2, 2, 3, None, None), (1, 3, 2, None, None),
+    (1, 1079, 1919, None, None), (2, 37, 41, None, None),
+    (2, 7, 9, 6, 8), (1, 10, 17, 9, 12)])
+def test_yuv420_plain_matches_jax_and_numpy(b, h, w, ch, cw, full_range):
+    rng = np.random.default_rng(h * w + 7 * full_range)
+    ch = (h + 1) // 2 if ch is None else ch
+    cw = (w + 1) // 2 if cw is None else cw
+    y = rng.integers(0, 256, (b, h, w), dtype=np.uint8)
+    u, v = (rng.integers(0, 256, (b, ch, cw), dtype=np.uint8)
+            for _ in range(2))
+    got = tyuv.yuv420_to_rgba_words_plain(
+        torch.from_numpy(y), torch.from_numpy(u), torch.from_numpy(v),
+        full_range).numpy()
+    np.testing.assert_array_equal(
+        got, np.asarray(jyuv.yuv420_to_rgba_words(y, u, v, full_range)))
+    np.testing.assert_array_equal(
+        got, jyuv.yuv420_to_rgba_words_np(y, u, v, full_range))
+
+
 # ---- (b) resize -------------------------------------------------------
 
 @pytest.mark.parametrize("in_size,out_size,horizontal", [

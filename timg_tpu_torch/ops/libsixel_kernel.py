@@ -5,7 +5,9 @@ wavefront, each a CUDA kernel's wrapper beside its plain PyTorch version
 ``build_bucket_tables`` replaces ``build_bucket_tables_device`` (XLA in
 the reference, no Pallas kernel): per frame, the nearest palette index
 of each 15-bit bucket's base color, first minimum winning
-(csrc/bucket_tables.cu).  ``fs_dither_table_fused`` replaces
+(csrc/bucket_tables.cu: the distance without its per-key constant, the
+index packed below it, one min per key and entry; four lanes share a
+row of 32 keys).  ``fs_dither_table_fused`` replaces
 ``fs_dither_table_fused`` (K8) with its layout kernels: libsixel's
 integer error diffusion, the index looked up in the frame's table, as
 one instantiation of the wavefront driver that the f32 dithers share
@@ -93,8 +95,8 @@ def build_bucket_tables_plain(pals: torch.Tensor) -> torch.Tensor:
 
 
 def build_bucket_tables_cuda(pals: torch.Tensor) -> torch.Tensor:
-    """The CUDA kernel: [B, 256, 3] int32 CUDA palettes -> [B, 32768]
-    uint8 tables."""
+    """The CUDA kernel: [B, 256, 3] int32 CUDA palettes, channels in
+    [0, 255] -> [B, 32768] uint8 tables."""
     global BUCKET_LAUNCHES
     if not pals.is_cuda or pals.dim() != 3 \
             or tuple(pals.shape[1:]) != (PALETTE_SIZE, 3):

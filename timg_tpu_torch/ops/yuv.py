@@ -1,5 +1,7 @@
-"""YUV 4:2:0 -> RGBA words in torch integer ops (counterpart of
-timg_tpu/ops/yuv.py, whose device version is plain XLA, not a kernel).
+"""YUV 4:2:0 -> RGBA words (counterpart of timg_tpu/ops/yuv.py, whose
+device version is plain XLA, not a kernel): a CUDA tensor goes through
+the hand-written kernel (ops/yuv_kernel.py, csrc/yuv420.cu), a CPU
+tensor through the plain version in torch integer ops below.
 
 BT.601 in 16-bit fixed point with interstitial 2x chroma upsampling:
 
@@ -14,6 +16,8 @@ matches jnp's, so the words are bit-identical on every device.
 from __future__ import annotations
 
 import torch
+
+from timg_tpu_torch.ops import yuv_kernel
 
 # BT.601 coefficients in 16-bit fixed point (timg_tpu/ops/yuv.py:38-42).
 _LIM = dict(cy=76309, crv=104597, cgu=25675, cgv=53279, cbu=132201)
@@ -32,10 +36,13 @@ def _upsample2(c: torch.Tensor, dim: int, out_size: int) -> torch.Tensor:
     return out.reshape(shape).narrow(dim, 0, out_size)
 
 
-def yuv420_to_rgba_words(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
-                         full_range: bool) -> torch.Tensor:
-    """[B,H,W] y + [B,ceil(H/2),ceil(W/2)] u/v uint8 -> [B,H,W] int32
-    RGBA-packed words (alpha 255)."""
+def yuv420_to_rgba_words_plain(y: torch.Tensor, u: torch.Tensor,
+                               v: torch.Tensor,
+                               full_range: bool) -> torch.Tensor:
+    """Plain PyTorch version: [B,H,W] y + [B,ceil(H/2),ceil(W/2)] u/v
+    uint8 -> [B,H,W] int32 RGBA-packed words (alpha 255).  The chroma
+    upsample clamps at the planes' own edges, then keeps H rows and W
+    columns."""
     h, w = y.shape[-2], y.shape[-1]
     k = _FULL if full_range else _LIM
     nd = y.dim()
@@ -53,3 +60,14 @@ def yuv420_to_rgba_words(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
     g = fin(k["cy"] * yc - k["cgu"] * d - k["cgv"] * e)
     b = fin(k["cy"] * yc + k["cbu"] * d)
     return r | (g << 8) | (b << 16) | -(1 << 24)
+
+
+def yuv420_to_rgba_words(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
+                         full_range: bool) -> torch.Tensor:
+    """[B,H,W] y + [B,ceil(H/2),ceil(W/2)] u/v uint8 -> [B,H,W] int32
+    RGBA-packed words (alpha 255); the contract of
+    timg_tpu/ops/yuv.py:yuv420_to_rgba_words.  A CUDA tensor launches the
+    kernel, a CPU tensor runs the plain version."""
+    if y.is_cuda:
+        return yuv_kernel.yuv420_to_rgba_words_cuda(y, u, v, full_range)
+    return yuv420_to_rgba_words_plain(y, u, v, full_range)
