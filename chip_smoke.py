@@ -2,8 +2,6 @@
 """Smoke run of the PyTorch/CUDA port (timg_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --bucket-times CHECKOUT   # the bucket build of
-                                                    # another checkout
 
 Needs one CUDA card, nvcc and g++; exits non-zero without them.  Imports
 only the port (timg_tpu_torch), never jax or the JAX package.  Phases:
@@ -32,9 +30,9 @@ only the port (timg_tpu_torch), never jax or the JAX package.  Phases:
    frame (the library's per-frame loop), and K6, K7 and K8 on 32 rows (one
    warp alone), each with its time a serial step. Each kernel must equal
    its plain PyTorch version byte for byte (the resize's on CPU copies,
-   the others' on the card); all are timed with CUDA events (the bucket
-   build, shorter than its launch on the host, around a CUDA graph of
-   calls) beside their bound (bytes over 3.35 TB/s or operations over 67
+   the others' on the card); all are timed with CUDA events over
+   back-to-back calls (the bucket build, shorter than its launch on the
+   host, also around a CUDA graph of calls) beside their bound (bytes over 3.35 TB/s or operations over 67
    TFLOP/s, the bucket build's integer mins over 16.7 TOP/s, whichever is
    larger) and, where one PyTorch call computes the same function, that
    call's time;
@@ -326,10 +324,17 @@ def convert_phase(planes) -> tuple:
     print(f"kernels: yuv420_to_rgba_words at the CLI's window, B={N_WINDOW}:"
           f" {ms:.6f} ms, plain {plain:.6f} ms, bound "
           f"{bound(nbytes(N_WINDOW), 0)['bound_ms']:.6f} ms (bytes)")
+    n0 = yuv_kernel.LAUNCHES
+    yuv_kernel.yuv420_to_rgba_words_cuda(*window, False)
+    if yuv_kernel.LAUNCHES - n0 != 1:
+        fail(f"the convert counted {yuv_kernel.LAUNCHES - n0} launches a "
+             "call, not one")
+    # the process's first profiling session, the one that reliably sees
+    # device time on the card's machine: an empty split fails too
     split = device_profile(
         lambda: yuv_kernel.yuv420_to_rgba_words_cuda(*window, False),
         f"yuv420_to_rgba_words, B={N_WINDOW}")
-    if len(split) > 1:
+    if len(split) != 1:
         fail(f"the convert ran {len(split)} device kernels a call, not one")
     return words, r
 
@@ -575,13 +580,14 @@ def kernel_phase(dev):
     times = bucket_times(pals)
     results["bucket"] = dict(
         max_abs_err=err,
-        ms=times[N_KERNEL],
+        **times[N_KERNEL],
         plain_ms=cuda_ms(lambda: lib.build_bucket_tables_plain(pals), 3),
         library_ms=cuda_ms(lambda: torch.cdist(
             bases.expand(N_KERNEL, -1, -1), pals_f32).argmin(dim=2), 3),
         **bucket_bound(N_KERNEL))
     print(f"kernels: bucket_tables at the CLI's window, B={N_WINDOW}: "
-          f"{times[N_WINDOW]:.6f} ms, bound "
+          f"{times[N_WINDOW]['ms']:.6f} ms by events, "
+          f"{times[N_WINDOW]['graph_ms']:.6f} ms in a CUDA graph, bound "
           f"{bucket_bound(N_WINDOW)['bound_ms']:.6f} ms (operations)")
 
     palw = lib.palette_words(pals)
@@ -707,10 +713,12 @@ def kernel_phase(dev):
 
 def bucket_times(pals) -> dict:
     """The bucket build of the imported timg_tpu_torch on [32, 256, 3]
-    CUDA palettes at B=8 and B=32: byte-equal to its plain version, timed
-    by ``graph_ms`` and split by torch.profiler.  ``--bucket-times
-    CHECKOUT`` runs this on seeded palettes with another checkout's
-    package, e.g. the parent commit's.  Returns {B: ms}."""
+    CUDA palettes at B=8 and B=32: byte-equal to its plain version and
+    timed two ways, by CUDA events over back-to-back calls (``ms``, as
+    every kernel; the wrapper's issue time when it exceeds the kernel's)
+    and by ``graph_ms`` (the device time).  A driver that puts another
+    checkout first on sys.path times that checkout's build with it.
+    Returns {B: {"ms": ..., "graph_ms": ...}}."""
     from timg_tpu_torch.ops import libsixel_kernel as lib
 
     where = os.path.dirname(os.path.dirname(os.path.dirname(lib.__file__)))
@@ -719,11 +727,13 @@ def bucket_times(pals) -> dict:
         p = pals[:b].contiguous()
         check_equal(f"bucket_tables B={b}", lib.build_bucket_tables_cuda(p),
                     lib.build_bucket_tables_plain(p))
-        times[b] = graph_ms(lambda: lib.build_bucket_tables_cuda(p))
-        device_profile(lambda: lib.build_bucket_tables_cuda(p),
-                       f"bucket_tables B={b}")
+        times[b] = dict(ms=cuda_ms(lambda: lib.build_bucket_tables_cuda(p),
+                                   20),
+                        graph_ms=graph_ms(
+                            lambda: lib.build_bucket_tables_cuda(p)))
         print(f"kernels: bucket_tables of {where}, B={b}: equal to plain; "
-              f"{times[b]:.6f} ms a call in a CUDA graph")
+              f"{times[b]['ms']:.6f} ms a call by events, "
+              f"{times[b]['graph_ms']:.6f} ms in a CUDA graph")
     return times
 
 
@@ -842,18 +852,6 @@ def main() -> int:
         sys.path.insert(0, REPO)
         sys.stdout.buffer.write(main_path_stream(sys.argv[2],
                                                  int(sys.argv[3])))
-        return 0
-    if len(sys.argv) == 3 and sys.argv[1] == "--bucket-times":
-        # the bucket build of the checkout at argv[2] (another commit's)
-        import numpy as np
-        import torch
-
-        sys.path.insert(0, os.path.abspath(sys.argv[2]))
-        if not torch.cuda.is_available():
-            fail("torch.cuda.is_available() is false: needs an NVIDIA GPU")
-        rng = np.random.default_rng(SEED + 5)
-        bucket_times(torch.from_numpy(rng.integers(
-            0, 256, (N_KERNEL, 256, 3)).astype(np.int32)).to("cuda"))
         return 0
     if len(sys.argv) == 2 and sys.argv[1] == "--library-payloads":
         # child of the library phase: every run on the CPU

@@ -96,7 +96,10 @@ def build_bucket_tables_plain(pals: torch.Tensor) -> torch.Tensor:
 
 def build_bucket_tables_cuda(pals: torch.Tensor) -> torch.Tensor:
     """The CUDA kernel: [B, 256, 3] int32 CUDA palettes, channels in
-    [0, 255] -> [B, 32768] uint8 tables."""
+    [0, 255] -> [B, 32768] uint8 tables.  The range is not checked (that
+    would wait on the card): outside it the packed int32 values of
+    csrc/bucket_tables.cu overflow, where the plain version takes any
+    int32."""
     global BUCKET_LAUNCHES
     if not pals.is_cuda or pals.dim() != 3 \
             or tuple(pals.shape[1:]) != (PALETTE_SIZE, 3):
@@ -114,7 +117,8 @@ def build_bucket_tables_cuda(pals: torch.Tensor) -> torch.Tensor:
 
 
 def build_bucket_tables(pals: torch.Tensor) -> torch.Tensor:
-    """[B, 256, 3] palettes -> [B, 32768] uint8 nearest-index tables; the
+    """[B, 256, 3] palettes, channels in [0, 255] (``pad_palettes`` of
+    uint8 palettes) -> [B, 32768] uint8 nearest-index tables; the
     contract of timg_tpu/ops/sixel_pallas3.py:build_bucket_tables_device.
     A CUDA tensor launches the kernel, a CPU tensor runs the plain
     version."""

@@ -203,6 +203,7 @@ def _dither_libsixel(words: torch.Tensor, padded_h: int, tw: int):
         pal, diffuse = lsq.make_palette_from_samples(rgb[i])
         pals.append(pal)
         diffs.append(bool(diffuse))
+    # uint8 palettes: channels in [0, 255], as the bucket kernel needs
     pals_dev = torch.from_numpy(pad_palettes(pals)).to(words.device)
     diffs_dev = torch.tensor(diffs, dtype=torch.int32, device=words.device)
     tables = build_bucket_tables(pals_dev)
