@@ -24,7 +24,11 @@ only the port (timg_tpu_torch), never jax or the JAX package.  Phases:
    channels); libsixel (per-frame palettes from the host, with one flat
    frame whose diffuse flag is 0, the bucket-table build, also timed at 8
    frames, and the table dither); and the
-   median-cut tree on words (K7) and on bytes. The wavefront driver is
+   median-cut tree on words (K7) and on bytes; the block kernels
+   (quarter and half cells with the window diff) at 720 rows and at 719
+   (odd: the blank pad row), with and without a tail, use_upper both
+   ways, and at the CLI's block geometry (1080p into -g160x48, B=8).
+   The wavefront driver is
    also checked and timed at the batches the main paths launch besides 32:
    K6, K7 and K8 at the CLI's 8-frame window, K9 and the byte tree at one
    frame (the library's per-frame loop), and K6, K7 and K8 on 32 rows (one
@@ -40,20 +44,26 @@ only the port (timg_tpu_torch), never jax or the JAX package.  Phases:
    (convert -> resize -> dither on the card -> plane fetch ->
    SixelCanvas assembly), as the CLI runs `-g160x48 -ps --dither=MODE
    -b black` on a terminal with 8x16-pixel cells: two 8-frame windows
-   with cube, one with libsixel and one with adaptive.  Each mode's
-   sixel stream must equal the same windows run with
+   with cube, one with libsixel and one with adaptive; then the block
+   window (convert -> resize -> block cells and window diff on the card
+   -> plane fetch -> UnicodeBlockCanvas), as `-g160x48 -pq|-ph -b
+   black` runs it: two 8-frame windows each of quarter and half blocks,
+   so the second window's first frame diffs against the first's tail.
+   Each mode's stream must equal the same windows run with
    TIMG_TPU_TORCH_DEVICE=cpu in a subprocess;
 4. library path: timg_tpu_torch.models.get("sixel") at 720x1280 on 8
    seeded 1080p RGBA frames with a transparent region (bg opaque black),
    in cube, adaptive (a tree per frame) and adaptive with
    adaptive_reuse, and render_batch_yuv on 8 frames of 1080p 4:2:0 in
-   cube.  The payload lists must equal a CPU subprocess's; the stage
-   times of the cube run are printed.
+   cube; the quarter model at 96x320 and the half model at 96x160 on
+   the same RGBA frames.  The payload lists must equal a CPU
+   subprocess's; the stage times of the cube run are printed.
 
 Before each run of phases 3 and 4 every launch counter is set to 0, and
 just after it every kernel of that run must have launched.  The C
-assembler must have assembled every frame (the Python twin none).  The
-CLI itself is not driven where the video decoder does not build.
+assembler must have assembled every sixel frame and the C ANSI emitter
+written every block frame (the Python twins none).  The CLI itself is
+not driven where the video decoder does not build.
 
 Output: progress lines, then one JSON line of per-kernel results, the
 card's nvidia-smi line, and as the last line
@@ -77,15 +87,25 @@ N_WINDOW = 8            # frames in the CLI's video window
 H_4K, W_4K = 2160, 3840  # 4K-class input of the resize check
 PASS_H, PASS_W = 16, 28  # 4K into this many pixels takes the two passes
 WARP_ROWS = 32          # rows of one warp of the f32 dither
-# frames through the main path per dither mode (8-frame windows)
-N_MAIN = {"cube": 16, "libsixel": 8, "adaptive": 8}
+# frames through the main path per mode (8-frame windows): the sixel
+# dithers, then quarter and half blocks
+N_MAIN = {"cube": 16, "libsixel": 8, "adaptive": 8, "quarter": 16,
+          "half": 16}
+# the block modes' cells in pixels and the CLI's width_stretch (a
+# terminal whose cell size is unknown: 1.0, doubled for quarter blocks)
+BLOCK_MODES = {"quarter": (2, 2.0), "half": (1, 1.0)}
+GRID_W, GRID_H = 160, 48    # -g160x48
 BG_WORD = -(1 << 24)    # opaque black RGBA word, as -b black pads rows
 N_LIB = 8               # frames a library-path run renders
 # library-path runs: name -> (dither, adaptive_reuse, input)
 LIB_RUNS = {"cube": ("cube", False, "rgba"),
             "adaptive": ("adaptive", False, "rgba"),
             "adaptive_reuse": ("adaptive", True, "rgba"),
-            "yuv": ("cube", False, "yuv")}
+            "yuv": ("cube", False, "yuv"),
+            "quarter": (None, False, "rgba"),
+            "half": (None, False, "rgba")}
+# the block models' output pixels (the library's -g160x48 canvas)
+LIB_BLOCK_SIZE = {"quarter": (96, 320), "half": (96, 160)}
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 F32_OPS_PER_S = 67e12       # float32 outside the tensor cores; also used
                             # for the int32 work of the table dither (K8)
@@ -101,6 +121,14 @@ INT32_OPS_PER_S = 132 * 64 * 1.98e9
 CUBE_OPS_PER_PX = 51
 TREE_OPS_PER_PX = 71
 TABLE_OPS_PER_PX = 83
+# float operations a quarter cell, counted from csrc/block_cells.cu: the
+# 4 linear colors (12), the 8 costs (avd4 51, four avd3 of 38, six avd2
+# of 25 and 3 sums: 356), the scan (16), the chosen colors again (12)
+# and two repacks (16).  Half cells do no float math (word compares).
+QUARTER_OPS_PER_CELL = 412
+# bytes a cell: its words in (read once), glyph, fg, bg and eq out
+QUARTER_BYTES_PER_CELL = 16 + 10
+HALF_BYTES_PER_CELL = 8 + 10
 
 
 def fail(msg: str) -> None:
@@ -132,24 +160,41 @@ def yuv_frames(n: int, seed: int):
     return ys, us, vs
 
 
+def block_options(mode: str):
+    """The CLI's display options for ``-g160x48 -p quarter|half``."""
+    from timg_tpu_torch.options import DisplayOptions
+
+    opts = DisplayOptions()
+    cell_x, stretch = BLOCK_MODES[mode]
+    opts.cell_x_px, opts.cell_y_px = cell_x, 2
+    opts.width_stretch = stretch
+    opts.width, opts.height = GRID_W * cell_x, GRID_H * 2
+    return opts
+
+
 def main_path_stream(mode: str, n: int) -> bytes:
     """n frames of 1080p through the port's video window, in 8-frame
-    windows, dithered in ``mode``, into the port's SixelCanvas; returns
-    the written stream."""
+    windows, dithered in ``mode`` into the port's SixelCanvas, or in
+    quarter or half blocks into its UnicodeBlockCanvas; returns the
+    written stream."""
     from concurrent.futures import ThreadPoolExecutor
 
     from timg_tpu_torch.colors import parse_color
     from timg_tpu_torch.geometry import calc_scale_to_fit
     from timg_tpu_torch.options import DisplayOptions, SixelOptions
+    from timg_tpu_torch.render.ansi import UnicodeBlockCanvas
     from timg_tpu_torch.render.renderer import Renderer
     from timg_tpu_torch.render.sequencer import BufferedWriteSequencer, SeqType
     from timg_tpu_torch.render.sixel_render import SixelCanvas
     from timg_tpu_torch.sources.video_source import _WINDOW, VideoSource
 
-    opts = DisplayOptions()
-    opts.cell_x_px, opts.cell_y_px = 8, 16
-    opts.width, opts.height = 160 * 8, 48 * 16          # -g160x48
-    opts.sixel_batch_dither = mode
+    if mode in BLOCK_MODES:
+        opts = block_options(mode)
+    else:
+        opts = DisplayOptions()
+        opts.cell_x_px, opts.cell_y_px = 8, 16
+        opts.width, opts.height = GRID_W * 8, GRID_H * 16   # -g160x48
+        opts.sixel_batch_dither = mode
     bg = parse_color("black")
     opts.bgcolor_getter = lambda: bg
     tw, th, _ = calc_scale_to_fit(IN_W, IN_H, opts)
@@ -168,8 +213,12 @@ def main_path_stream(mode: str, n: int) -> bytes:
             fd, allow_frame_skipping=False, max_queue_len=4,
             debug_no_frame_delay=True, interrupt_flag=lambda: False)
         # the CLI's canvas: compression pool of queue_len + 1 workers
-        canvas = SixelCanvas(sequencer, SixelOptions(), opts, dither=mode,
-                             executor=pool)
+        if mode in BLOCK_MODES:
+            canvas = UnicodeBlockCanvas(sequencer,
+                                        use_quarter=mode == "quarter")
+        else:
+            canvas = SixelCanvas(sequencer, SixelOptions(), opts,
+                                 dither=mode, executor=pool)
         sink = Renderer.create(canvas, opts, 1, 1, 0.0, 0.0).render_cb("")
         last_h = -1
         for k in range(0, n, _WINDOW):
@@ -424,6 +473,75 @@ def resize_passes(words, words_cpu) -> dict:
     return r
 
 
+def block_phase(words, w720) -> dict:
+    """The block kernels (quarter_cells, half_cells): byte-equal to their
+    plain versions on the card at B=32 on the 720x1280 words (even
+    height) and on their first 719 rows (odd: the blank pad row), with
+    and without a tail, use_upper both ways; then at the CLI's geometry
+    (1080p into -g160x48, B=8, resized by the resize kernel here).
+    Timed at B=32, 720 rows, with the diff against a tail, beside the
+    bound and the plain version, by events over calls (``ms``) and in a
+    CUDA graph (``graph_ms``, device time), and so at B=8."""
+    import torch
+
+    from timg_tpu_torch.geometry import calc_scale_to_fit
+    from timg_tpu_torch.ops import blocks as blocks_op
+    from timg_tpu_torch.ops import blocks_kernel, resize_kernel
+
+    odd = w720[:, :OUT_H - 1].contiguous()
+    tails = {OUT_H: w720[-1].clone(), OUT_H - 1: odd[0].clone()}
+    cli = {}
+    for mode in BLOCK_MODES:
+        tw, th, _ = calc_scale_to_fit(IN_W, IN_H, block_options(mode))
+        cli[mode] = resize_kernel.resize_video_words_cuda(
+            words[:N_WINDOW], th, tw)
+    kernels = {"quarter": (blocks_kernel.quarter_cells_cuda,
+                           blocks_op.quarter_cells_plain),
+               "half": (blocks_kernel.half_cells_cuda,
+                        blocks_op.half_cells_plain)}
+    results = {}
+    for mode, (kern, plain) in kernels.items():
+        name = f"{mode}_cells"
+        cases = [(w, up, tail) for w in (w720, odd) for up in (False, True)
+                 for tail in (None, tails[w.shape[1]])]
+        cases.append((cli[mode], False, cli[mode][-1].clone()))
+        errs = []
+        for w, up, tail in cases:
+            got = kern(w, up, tail)
+            torch.cuda.synchronize()
+            want = plain(w, up, tail)
+            errs += [check_equal(f"{name} B={w.shape[0]} {w.shape[1]}x"
+                                 f"{w.shape[2]} use_upper={up} tail="
+                                 f"{tail is not None} ({part})", g, ref)
+                     for part, g, ref in zip(("glyph", "fg", "bg", "eq"),
+                                             got, want)]
+        cells = N_KERNEL * (OUT_H // 2) * (OUT_W // (2 if mode == "quarter"
+                                                     else 1))
+        nbytes = cells * (QUARTER_BYTES_PER_CELL if mode == "quarter"
+                          else HALF_BYTES_PER_CELL) + OUT_H * OUT_W * 4
+        nops = cells * QUARTER_OPS_PER_CELL if mode == "quarter" else 0
+        tail = tails[OUT_H]
+        results[name] = dict(
+            max_abs_err=max(errs),
+            ms=cuda_ms(lambda: kern(w720, False, tail), 20),
+            graph_ms=graph_ms(lambda: kern(w720, False, tail)),
+            plain_ms=cuda_ms(lambda: plain(w720, False, tail), 3),
+            library_ms=None,     # no PyTorch call computes it
+            **bound(nbytes, nops))
+        w8, tail8 = cli[mode], cli[mode][-1].clone()
+        ms8 = cuda_ms(lambda: kern(w8, False, tail8), 20)
+        graph8 = graph_ms(lambda: kern(w8, False, tail8))
+        plain8 = cuda_ms(lambda: plain(w8, False, tail8), 3)
+        print(f"kernels: {name} {OUT_H}x{OUT_W} and {OUT_H - 1}x{OUT_W} "
+              f"(odd: blank pad row), B={N_KERNEL}, use_upper both ways, "
+              f"with and without a tail; {w8.shape[1]}x{w8.shape[2]} "
+              f"(1080p into -g{GRID_W}x{GRID_H}), B={N_WINDOW}: equal to "
+              f"plain; B={N_KERNEL}: {results[name]['graph_ms']:.6f} ms in "
+              f"a CUDA graph; B={N_WINDOW}: {ms8:.6f} ms by events, "
+              f"{graph8:.6f} ms in a CUDA graph, plain {plain8:.6f} ms")
+    return results
+
+
 def kernel_phase(dev):
     import numpy as np
     import torch
@@ -490,6 +608,7 @@ def kernel_phase(dev):
     device_profile(lambda: resize_kernel.resize_video_words_cuda(
         words, OUT_H, OUT_W), f"resize, B={N_KERNEL} -> {OUT_H}x{OUT_W}")
     results["resize_passes"] = resize_passes(*resize_4k(dev))
+    results.update(block_phase(words, resized[OUT_H]))
 
     # the dithers' two inputs: 720 rows (a multiple of 6: no pad), and
     # 722 rows padded to 726 with background rows
@@ -765,10 +884,15 @@ def rgba_frames(n: int, seed: int):
 
 def library_payloads(run: str) -> list:
     """One library-path run: 8 seeded 1080p frames through
-    timg_tpu_torch.models.get("sixel") at 720x1280 -> the payloads."""
+    timg_tpu_torch.models.get("sixel") at 720x1280, or through the
+    quarter or half block model at LIB_BLOCK_SIZE -> the payloads."""
     from timg_tpu_torch import models
 
     dither, reuse, kind = LIB_RUNS[run]
+    if run in LIB_BLOCK_SIZE:
+        oh, ow = LIB_BLOCK_SIZE[run]
+        model = models.get(run)(out_h=oh, out_w=ow, bg_color=(0, 0, 0, 255))
+        return model.render_batch(rgba_frames(N_LIB, SEED + 3))
     model = models.get("sixel")(out_h=OUT_H, out_w=OUT_W,
                                 bg_color=(0, 0, 0, 255), dither=dither,
                                 adaptive_reuse=reuse)
@@ -826,10 +950,13 @@ def library_stages(dev) -> None:
 
 PATH_KERNELS = {"cube": ("convert", "resize", "dither"),
                 "libsixel": ("convert", "resize", "bucket", "table"),
-                "adaptive": ("convert", "resize", "tree")}
+                "adaptive": ("convert", "resize", "tree"),
+                "quarter": ("convert", "resize", "quarter_cells"),
+                "half": ("convert", "resize", "half_cells")}
 LIB_KERNELS = {"cube": ("cube_rgb",), "adaptive": ("tree_rgb",),
                "adaptive_reuse": ("tree_rgb",),
-               "yuv": ("convert", "resize", "cube_rgb")}
+               "yuv": ("convert", "resize", "cube_rgb"),
+               "quarter": ("quarter_cells",), "half": ("half_cells",)}
 
 
 def build_native():
@@ -881,9 +1008,9 @@ def main() -> int:
 
     from concurrent.futures import ThreadPoolExecutor
 
-    from timg_tpu_torch.ops import (_build, libsixel_kernel, resize_kernel,
-                                    sixel_kernel, yuv_kernel)
-    from timg_tpu_torch.render import sixel_render
+    from timg_tpu_torch.ops import (_build, blocks_kernel, libsixel_kernel,
+                                    resize_kernel, sixel_kernel, yuv_kernel)
+    from timg_tpu_torch.render import ansi, sixel_render
     counters = {   # kernel -> (module, its launch counter)
         "convert": (yuv_kernel, "LAUNCHES"),
         "resize": (resize_kernel, "LAUNCHES"),
@@ -894,6 +1021,8 @@ def main() -> int:
         "table": (libsixel_kernel, "TABLE_LAUNCHES"),
         "cube_rgb": (sixel_kernel, "RGB_LAUNCHES"),
         "tree_rgb": (sixel_kernel, "TREE_RGB_LAUNCHES"),
+        "quarter_cells": (blocks_kernel, "QUARTER_LAUNCHES"),
+        "half_cells": (blocks_kernel, "HALF_LAUNCHES"),
     }
 
     def reset_counts():
@@ -934,6 +1063,8 @@ def main() -> int:
         [sys.executable, me, "--library-payloads"], env=env, cwd=REPO,
         stdout=subprocess.PIPE, stderr=subprocess.PIPE)
     assembled0 = dict(sixel_render.ASSEMBLED)
+    emitted0 = dict(ansi.EMITTED)
+    block_frames = 0        # frames the C ANSI emitter must have written
     try:
         streams, launches = {}, {k: 0 for k in counters}
         for mode, n in N_MAIN.items():
@@ -951,10 +1082,15 @@ def main() -> int:
                     fail(f"main path {mode} launched no {k} kernel")
             for k in counts:
                 launches[k] += counts[k]
-            n_dcs = stream.count(b"\033Pq")
-            if n_dcs != n:
-                fail(f"main path {mode} wrote {n_dcs} sixel images, "
-                     f"expected {n}")
+            if mode in BLOCK_MODES:
+                block_frames += n
+                if b"\033[0m\n" not in stream:
+                    fail(f"main path {mode} wrote no row of cells")
+            else:
+                n_dcs = stream.count(b"\033Pq")
+                if n_dcs != n:
+                    fail(f"main path {mode} wrote {n_dcs} sixel images, "
+                         f"expected {n}")
             streams[mode] = stream
         payloads = {}
         for run in LIB_RUNS:
@@ -972,7 +1108,14 @@ def main() -> int:
                     fail(f"library path {run} launched no {k} kernel")
             for k in counts:
                 launches[k] += counts[k]
-            if len(out) != N_LIB or not all(
+            if run in LIB_BLOCK_SIZE:
+                block_frames += len(out)
+                rows = LIB_BLOCK_SIZE[run][0] // 2
+                if len(out) != N_LIB or not all(
+                        p.count(b"\033[0m\n") == rows for p in out):
+                    fail(f"library path {run}: expected {N_LIB} payloads "
+                         f"of {rows} rows of cells")
+            elif len(out) != N_LIB or not all(
                     p.startswith(b"\033Pq") and p.endswith(b"\033\\")
                     for p in out):
                 fail(f"library path {run}: expected {N_LIB} sixel payloads")
@@ -984,6 +1127,13 @@ def main() -> int:
         if assembled["python"] or not assembled["c"]:
             fail("the main paths' frames were not all assembled by the C "
                  "sixel assembler")
+        emitted = {k: ansi.EMITTED[k] - emitted0[k] for k in emitted0}
+        print(f"emitter: the C ANSI emitter wrote {emitted['c']} frames, the "
+              f"Python twin {emitted['python']}")
+        if emitted["python"] or emitted["c"] != block_frames:
+            fail(f"of the {block_frames} block frames, the C ANSI emitter "
+                 f"wrote {emitted['c']} and the Python twin "
+                 f"{emitted['python']}")
         library_stages(dev)
         for mode, child in children.items():
             out, err = child.communicate(timeout=900)
@@ -1004,8 +1154,7 @@ def main() -> int:
             if out != streams[mode]:
                 fail(f"{mode}: cuda stream ({len(streams[mode])} B) != cpu "
                      f"stream ({len(out)} B)")
-            print(f"main path: {mode}: cuda sixel stream == cpu sixel "
-                  "stream")
+            print(f"main path: {mode}: cuda stream == cpu stream")
     finally:
         for child in children.values():
             if child.poll() is None:
@@ -1030,6 +1179,10 @@ def main() -> int:
          "timg_tpu/ops/sixel_pallas.py:124"),
         ("fs_dither_tree_rgb", "tree_rgb", "fs_dither_cube.cu",
          "timg_tpu/ops/sixel.py:373"),
+        ("quarter_cells", "quarter_cells", "block_cells.cu",
+         "timg_tpu/ops/blocks.py:82"),
+        ("half_cells", "half_cells", "block_cells.cu",
+         "timg_tpu/ops/blocks.py:185"),
     ]
     kernels = [dict(name=n, route="cuda",
                     source=f"timg_tpu_torch/csrc/{src}", replaces=rep,

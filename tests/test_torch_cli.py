@@ -1,7 +1,8 @@
 """The port's CLI (timg_tpu_torch.cli) against the JAX package's CLI.
 
 The same y4m clip goes through both CLIs under a scripted pty; the sixel
-streams must be byte-identical, in every --dither mode.  The port never
+streams must be byte-identical, in every --dither mode, and so must the
+quarter- and half-block streams.  The port never
 imports jax, which a subprocess run shows, and it refuses what it does
 not run yet.
 """
@@ -37,13 +38,14 @@ def _y4m(tmp_path, w=64, h=48, n=5):
         for i in range(n):
             y = np.full((h, w), 70 + 15 * i, np.uint8)
             y[:, w // 3:] = 180 - 10 * i
-            y[10:30, 10:40] = rng.integers(16, 236, (20, 30),
+            y[10:30, 10:40] = rng.integers(16, 236, y[10:30, 10:40].shape,
                                            dtype=np.uint8)
             f.write(b"FRAME\n")
             f.write(y.tobytes())
-            f.write(rng.integers(100, 160, (h // 2, w // 2),
-                                 dtype=np.uint8).tobytes())
-            f.write(np.full((h // 2, w // 2), 135, np.uint8).tobytes())
+            ch, cw = (h + 1) // 2, (w + 1) // 2
+            f.write(rng.integers(100, 160, (ch, cw), dtype=np.uint8)
+                    .tobytes())
+            f.write(np.full((ch, cw), 135, np.uint8).tobytes())
     return str(p)
 
 
@@ -86,6 +88,29 @@ def test_cli_stream_matches_jax(native, tmp_path, geometry, dither):
     got = _run_pty(torch_main, argv, tmp_path / "torch.out")
     assert got == want
     assert got.count(b"\033Pq") == 5
+
+
+@pytest.mark.parametrize("flags,size", [
+    pytest.param(["-pq"], (64, 48), id="-pq-g40x20"),
+    pytest.param(["-pq", "--color8"], (64, 48), id="-pq-color8"),
+    pytest.param(["-pq"], (33, 21), id="-pq-odd-height"),
+    pytest.param(["-ph"], (64, 48), id="-ph-g40x20"),
+    pytest.param(["-ph"], (33, 21), id="-ph-odd-width-and-height")])
+def test_cli_block_stream_matches_jax(native, tmp_path, flags, size):
+    """Quarter and half blocks on the same clip: the whole ANSI stream,
+    diffs between frames included.  The 33x21 clip fits the 40x20-cell
+    canvas unscaled, so its frames keep an odd height (and, in half
+    blocks, an odd width)."""
+    from timg_tpu.cli import main as jax_main
+    from timg_tpu_torch.cli import main as torch_main
+
+    clip = _y4m(tmp_path, *size)
+    argv = ["--debug-no-frame-delay", "-g40x20", *flags, "-b", "black",
+            "--loops=1", clip]
+    want = _run_pty(jax_main, argv, tmp_path / "jax.out")
+    got = _run_pty(torch_main, argv, tmp_path / "torch.out")
+    assert got == want
+    assert got.count(b"\033[0m\n") > 5
 
 
 def test_cli_subprocess_never_imports_jax(native, tmp_path):
@@ -135,8 +160,8 @@ def test_cli_without_cuda_names_the_variable(monkeypatch, tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flags,what", [
-    (["-pq", "--dither=cube"], "-p quarter block"),
-    (["-pq"], "-p quarter block"),
+    (["-pk"], "-p kitty graphics"),
+    (["-pi"], "-p iterm2 graphics"),
     (["-ps", "--dither=cube", "--resample=sws"], "--resample=sws"),
 ])
 def test_cli_refuses_what_is_not_ported(tmp_path, capsys, flags, what):

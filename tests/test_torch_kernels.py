@@ -13,6 +13,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from timg_tpu_torch.ops import blocks as tblocks  # noqa: E402
+from timg_tpu_torch.ops import blocks_kernel  # noqa: E402
 from timg_tpu_torch.ops import libsixel_kernel as tlib  # noqa: E402
 from timg_tpu_torch.ops import libsixel_quant as lsq  # noqa: E402
 from timg_tpu_torch.ops import resize as tresize  # noqa: E402
@@ -125,6 +127,11 @@ def test_cuda_wrappers_refuse_cpu_tensors():
         yuv_kernel.yuv420_to_rgba_words_cuda(*_yuv_planes(4, 1, 12, 16),
                                              False)
     assert yuv_kernel.LAUNCHES == 0
+    for cells in (blocks_kernel.quarter_cells_cuda,
+                  blocks_kernel.half_cells_cuda):
+        with pytest.raises(ValueError):
+            cells(words)
+    assert blocks_kernel.QUARTER_LAUNCHES == blocks_kernel.HALF_LAUNCHES == 0
 
 
 def test_dither_rejects_bad_input():
@@ -786,3 +793,217 @@ def test_rgb_kernels_refuse_too_many_rows(cuda_device):
                          device=cuda_device)
     with pytest.raises(ValueError):
         sixel_kernel.fs_dither_cube_rgb_cuda(frames, 4097, 4)
+
+
+# ---- block cells (csrc/block_cells.cu) ------------------------------------
+
+def _block_words(seed, b, th, tw):
+    """Seeded RGBA words for the block cells: noise with alphas around the
+    transparency threshold, flat and mirrored cells, a repeated region
+    (so the window diff finds equal cells) and alpha-0 and alpha-255
+    runs."""
+    rng = np.random.default_rng(seed)
+    img = rng.integers(0, 256, (b, th, tw, 4), dtype=np.uint8)
+    img[..., 3] = rng.choice(np.array([0, 0x5F, 0x60, 0x61, 0x80, 255],
+                                      np.uint8), (b, th, tw))
+    img[0, :4, :4] = img[0, 0, 0]
+    img[:, :, 1::2] = np.where(rng.random((b, th, 1, 1)) < 0.3,
+                               img[:, :, 0::2][:, :, :tw // 2],
+                               img[:, :, 1::2])
+    if b > 1:
+        img[1, : th // 2] = img[0, : th // 2]
+    return torch.from_numpy(img.view(np.int32)[..., 0].copy())
+
+
+def _emulate_cells(words, use_upper, prev, quarter):
+    """The block kernel's per-thread algorithm in numpy float32 scalars,
+    cell by cell: the pad row and the tail by index, the 8 costs, the
+    serial scan from 1e12 with its early exit, the chosen candidate's
+    colors computed again, the repack, the overrides, the diff."""
+    f32 = np.float32
+    w = words.numpy().view(np.uint8).reshape(words.shape + (4,))
+    p = (prev.numpy().view(np.uint8).reshape(prev.shape + (4,))
+         if prev is not None else None)
+    b, th, tw, _ = w.shape
+    top = 1 if (th % 2 and not use_upper) else 0
+    cw = 2 if quarter else 1
+    h2, wc = (th + 1) // 2, tw // cw
+    glyph = np.zeros((b, h2, wc), np.uint8)
+    fg = np.zeros((b, h2, wc, 4), np.uint8)
+    bg = np.zeros((b, h2, wc, 4), np.uint8)
+    eq = np.zeros((b, h2, wc), bool)
+
+    def px(frame, r, c):
+        r -= top
+        if frame is None or not 0 <= r < th:
+            return np.zeros(4, np.uint8)
+        return frame[r, c]
+
+    def lin(q):
+        v = q.astype(f32)
+        return np.array([v[0] * v[0], v[1] * v[1], v[2] * v[2], v[3]], f32)
+
+    def avg(*vs):
+        acc = vs[0]
+        for v in vs[1:]:
+            acc = acc + v
+        return acc * f32(0.5) if len(vs) == 2 else (
+            acc * f32(0.25) if len(vs) == 4 else acc / f32(3))
+
+    def avd(*vs):
+        m = avg(*vs)
+        tot = f32(0)
+        for k, v in enumerate(vs):
+            d = v[:3] - m[:3]
+            dd = (d[0] * d[0] + d[1] * d[1]) + d[2] * d[2]
+            tot = dd if k == 0 else tot + dd
+        return tot
+
+    def repack(c):
+        rgb = [int(min(np.sqrt(c[k]), f32(255))) for k in range(3)]
+        return np.array(rgb + [int(c[3])], np.uint8)
+
+    for i in range(b):
+        before = w[i - 1] if i else p
+        for r in range(h2):
+            for c in range(wc):
+                cell = [px(w[i], 2 * r + dy, cw * c + dx)
+                        for dy in (0, 1) for dx in range(cw)]
+                prevc = [px(before, 2 * r + dy, cw * c + dx)
+                         for dy in (0, 1) for dx in range(cw)]
+                eq[i, r, c] = all((a == q).all()
+                                  for a, q in zip(cell, prevc))
+                if not quarter:
+                    t, u = cell
+                    is_bg = (t == u).all() or (t[3] < 0x60 and u[3] < 0x60)
+                    glyph[i, r, c] = 0 if is_bg else (8 if use_upper else 7)
+                    fg[i, r, c] = t if (is_bg or use_upper) else u
+                    bg[i, r, c] = u if (is_bg or use_upper) else t
+                    continue
+                tl_u, tr_u, bl_u, br_u = cell
+                tl, tr, bl, br = (lin(q) for q in cell)
+                cost = [avd(tl, tr, bl, br), avd(tr, bl, br),
+                        avd(tl, bl, br), avd(tl, tr, br), avd(tl, tr, bl),
+                        avd(tr, br) + avd(tl, bl), avd(tr, bl) + avd(tl, br),
+                        (avd(bl, br) + avd(tl, tr)) if use_upper
+                        else (avd(tl, tr) + avd(bl, br))]
+                best, k_best = f32(1e12), 0
+                for k in range(8):
+                    if cost[k] < best:
+                        best, k_best = cost[k], k
+                        if cost[k] < 1:
+                            break
+                fgc, bgc = {
+                    0: (avg(tl, tr, bl, br), avg(tl, tr, bl, br)),
+                    1: (tl, avg(tr, bl, br)), 2: (tr, avg(tl, bl, br)),
+                    3: (bl, avg(tl, tr, br)), 4: (br, avg(tl, tr, bl)),
+                    5: (avg(tl, bl), avg(tr, br)),
+                    6: (avg(tl, br), avg(tr, bl)),
+                    7: ((avg(tl, tr), avg(bl, br)) if use_upper
+                        else (avg(bl, br), avg(tl, tr)))}[k_best]
+                g = (8 if use_upper else 7) if k_best == 7 else k_best
+                fq, bq = repack(fgc), repack(bgc)
+                top_t = tl_u[3] < 0x60 and tr_u[3] < 0x60
+                bot_t = bl_u[3] < 0x60 and br_u[3] < 0x60
+                if bot_t:
+                    g, fq, bq = 8, repack(avg(tl, tr)), bl_u
+                if top_t:
+                    g, fq, bq = 7, repack(avg(bl, br)), tl_u
+                if top_t and bot_t:
+                    g, fq, bq = 0, bl_u, tl_u
+                glyph[i, r, c], fg[i, r, c], bg[i, r, c] = g, fq, bq
+    return glyph, fg, bg, eq
+
+
+@pytest.mark.parametrize("quarter", [True, False])
+@pytest.mark.parametrize("use_upper", [False, True])
+@pytest.mark.parametrize("th,tail", [(8, False), (7, True), (9, False)])
+def test_block_kernel_algorithm_matches_plain(quarter, use_upper, th, tail):
+    """The kernel's per-thread formulation (a serial scan with a break,
+    colors of the chosen candidate only, pad row and tail by index)
+    emulated in numpy float32 equals the plain vectorized version."""
+    words = _block_words(th, 2, th, 10)
+    prev = _block_words(th + 1, 1, th, 10)[0] if tail else None
+    if tail:
+        prev[: th // 2] = words[0, : th // 2]
+    cells = (tblocks.quarter_cells_plain if quarter
+             else tblocks.half_cells_plain)
+    want = cells(words, use_upper, prev)
+    got = _emulate_cells(words, use_upper, prev, quarter)
+    np.testing.assert_array_equal(got[0], want[0].numpy())
+    np.testing.assert_array_equal(
+        got[1], want[1].numpy().view(np.uint8).reshape(got[1].shape))
+    np.testing.assert_array_equal(
+        got[2], want[2].numpy().view(np.uint8).reshape(got[2].shape))
+    np.testing.assert_array_equal(got[3], want[3].numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,th,tw", [(3, 20, 30), (2, 21, 30), (4, 17, 26),
+                                     (1, 1, 2), (2, 720, 1280),
+                                     (2, 361, 640)])
+@pytest.mark.parametrize("use_upper", [False, True])
+@pytest.mark.parametrize("quarter", [True, False])
+def test_block_kernel_matches_plain(cuda_device, b, th, tw, use_upper,
+                                    quarter):
+    """quarter_cells / half_cells on the card, byte-equal to their plain
+    versions, with and without the tail and the diff."""
+    words = _block_words(th * tw + b, b, th, tw)
+    prev = _block_words(th + tw, 1, th, tw)[0]
+    prev[: th // 2] = words[-1, : th // 2]
+    kern = (blocks_kernel.quarter_cells_cuda if quarter
+            else blocks_kernel.half_cells_cuda)
+    plain = (tblocks.quarter_cells_plain if quarter
+             else tblocks.half_cells_plain)
+    for tail in (None, prev):
+        for diff in (True, False):
+            got = kern(words.to(cuda_device), use_upper,
+                       tail.to(cuda_device) if tail is not None else None,
+                       diff)
+            torch.cuda.synchronize()
+            want = plain(words, use_upper, tail, diff)
+            assert (got[3] is None) == (want[3] is None) == (not diff)
+            for g, w in zip(got, want):
+                if w is not None:
+                    assert g.dtype == w.dtype and torch.equal(g.cpu(), w)
+
+
+@pytest.mark.cuda
+def test_block_kernel_reads_unaligned_and_counts(cuda_device):
+    """A window whose words start at an odd word (a view) is copied, not
+    misread; each call counts one launch; the frame-batch interface
+    (quarter_blocks / half_blocks) launches the same kernel."""
+    words = _block_words(5, 3, 12, 18).to(cuda_device)
+    flat = torch.cat([torch.zeros(1, dtype=torch.int32, device=cuda_device),
+                      words.reshape(-1)])
+    view = flat[1:].view(3, 12, 18)
+    assert view.data_ptr() % 8
+    n0 = blocks_kernel.QUARTER_LAUNCHES
+    got = blocks_kernel.quarter_cells_cuda(view)
+    assert blocks_kernel.QUARTER_LAUNCHES == n0 + 1
+    want = tblocks.quarter_cells_plain(words.cpu())
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    frames = words.view(torch.uint8).reshape(3, 12, 18, 4)
+    h0 = blocks_kernel.HALF_LAUNCHES
+    for fn, plain in ((tblocks.quarter_blocks, tblocks.quarter_blocks_plain),
+                      (tblocks.half_blocks, tblocks.half_blocks_plain)):
+        for g, w in zip(fn(frames), plain(frames.cpu())):
+            assert g.dtype == w.dtype and torch.equal(g.cpu(), w)
+    assert blocks_kernel.QUARTER_LAUNCHES == n0 + 2
+    assert blocks_kernel.HALF_LAUNCHES == h0 + 1
+
+
+@pytest.mark.cuda
+def test_plain_block_average_divides_exactly_on_the_card(cuda_device):
+    """The plain version's /3 on CUDA tensors is the correctly rounded
+    division (torch divides by a Python scalar as a multiply by its
+    reciprocal there, which differs for a third of these sums)."""
+    s = np.arange(0, 3 * 65025 + 1, dtype=np.float32)
+    v = torch.zeros((len(s), 4), dtype=torch.float32)
+    v[:, 0] = v[:, 3] = torch.from_numpy(s)
+    zero = torch.zeros_like(v)
+    for dev in (torch.device("cpu"), cuda_device):
+        avg, _ = tblocks._avd(v.to(dev), zero.to(dev), zero.to(dev))
+        np.testing.assert_array_equal(avg[:, 0].cpu().numpy(),
+                                      s / np.float32(3))

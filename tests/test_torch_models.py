@@ -1,12 +1,12 @@
-"""The port's library API (timg_tpu_torch.models, "sixel") and the ops it
-runs, against the JAX package on the CPU.
+"""The port's library API (timg_tpu_torch.models: "sixel", "quarter",
+"half") and the ops it runs, against the JAX package on the CPU.
 
 Tolerance everywhere: byte equality.  The references are the JAX
 package's strict numpy mirrors (ops/resize_np.resize_batch_np,
 ops/cpu_mirror.alpha_compose_background_np, ops/sixel_np's dithers,
 render/sixel_render.encode_sixel_stream), K9 itself in interpret mode
 (ops/sixel_pallas.fs_dither_cube_pallas), and the JAX package's own
-SixelModel on the CPU.  Small seeded inputs: [3, 40, 60, 4] with random
+SixelModel and block models on the CPU.  Small seeded inputs: [3, 40, 60, 4] with random
 alpha, odd B, heights that are not multiples of 6.
 """
 
@@ -202,10 +202,36 @@ def test_sixel_model_takes_tensors_and_a_device():
 
 
 def test_registry_and_not_ported():
-    assert models.available() == ["sixel"]
+    assert models.available() == ["half", "quarter", "sixel"]
     assert models.get("sixel") is models.SixelModel
-    for name in ("half", "quarter", "kitty", "iterm2"):
+    assert models.get("quarter") is models.QuarterBlockModel
+    assert models.get("half") is models.HalfBlockModel
+    for name in ("kitty", "iterm2"):
         with pytest.raises(NotImplementedError, match="not yet ported"):
             models.get(name)
     with pytest.raises(KeyError):
         models.get("nope")
+
+
+@pytest.mark.parametrize("bg", [(0, 0, 0, 255), (40, 90, 200, 255), None])
+@pytest.mark.parametrize("name,oh,ow,upper,c256", [
+    ("quarter", 18, 30, False, False),
+    ("quarter", 17, 29, True, False),     # odd sizes: the model pads
+    ("quarter", 24, 40, False, True),     # --color8
+    ("half", 18, 30, False, False),
+    ("half", 17, 29, True, True)])
+def test_block_model_matches_jax_model(name, oh, ow, upper, c256, bg):
+    """The JAX package's block models on the CPU write the same ANSI
+    payloads, with an opaque background and with none (no compose)."""
+    import timg_tpu.models as jmodels
+
+    fr = _frames(11)
+    kw = dict(out_h=oh, out_w=ow, bg_color=bg, use_upper_half_block=upper,
+              use_256_color=c256)
+    want = jmodels.get(name)(**kw).render_batch(fr)
+    model = models.get(name)(**kw)
+    assert (model.out_h, model.out_w) == (jmodels.get(name)(**kw).out_h,
+                                          jmodels.get(name)(**kw).out_w)
+    got = model.render_batch(fr)
+    assert got == want and len(got) == len(fr)
+    assert model.render_batch(torch.from_numpy(fr)) == want

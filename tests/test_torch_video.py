@@ -214,3 +214,121 @@ def test_canvas_assembles_primed_planes():
     with pytest.raises(NotImplementedError, match="not yet ported"):
         canvas.send(0, 0, np.asarray(frames[0]).copy(),
                     SeqType.FRAME_IMMEDIATE)
+
+
+def _block_opts(cell_x):
+    opts = _opts(None)
+    opts.cell_x_px, opts.cell_y_px = cell_x, 2
+    return opts
+
+
+@pytest.mark.parametrize("use_upper", [False, True])
+@pytest.mark.parametrize("th,tw", [(20, 30), (21, 30), (17, 26)])
+@pytest.mark.parametrize("cell_x", [2, 1])
+def test_prime_block_video_matches_jax(jax_device_window, monkeypatch,
+                                       cell_x, th, tw, use_upper):
+    """The block window, quarter and half, at even and odd heights, over
+    two windows (the second's frame 0 diffs against the first's tail):
+    every primed plane, the diff masks and the frame pixels equal the
+    JAX device window's, and the canvas's identity check holds across
+    the windows."""
+    if use_upper:
+        monkeypatch.setenv("TIMG_USE_UPPER_BLOCK", "1")
+    jstate, tstate = {}, {}
+    tail_obj = None
+    for k, seed in enumerate((60, 61)):
+        ys, us, vs = _window(seed + th, 3, 40, 56)
+        for c, p in enumerate((ys, us, vs)):
+            if k:
+                p[0] = last[c]            # frame 0 repeats the tail
+            p[1, :len(p[1]) // 2] = p[0, :len(p[1]) // 2]   # a top repeats
+        tail = [p[-1].copy() for p in (ys, us, vs)]
+        want = jcache.prime_block_video_device(
+            ys, us, vs, th, tw, False, _block_opts(cell_x), jstate)
+        got = tcache.prime_block_video_device(
+            ys, us, vs, th, tw, False, _block_opts(cell_x), tstate)
+        assert want is not None and len(got) == len(want) == 3
+        for i, (g, j) in enumerate(zip(got, want)):
+            assert g.shape == j.shape == (th, tw, 4)
+            np.testing.assert_array_equal(np.asarray(g), np.asarray(j))
+            gp, gg, gf, gb, gprev, geq = tcache.BLOCK_PLANES.pop(g)
+            jp, jg, jf, jb, jprev, jeq = jcache.BLOCK_PLANES.pop(j)
+            assert gp.shape == jp.shape == (th + th % 2, tw, 4)
+            np.testing.assert_array_equal(np.asarray(gp), np.asarray(jp))
+            for a, b in ((gg, jg), (gf, jf), (gb, jb)):
+                np.testing.assert_array_equal(a, b)
+            assert (geq is None) == (jeq is None) == (k == 0 and i == 0)
+            if geq is not None:
+                np.testing.assert_array_equal(geq, jeq)
+                if i == 0:                # the repeated tail
+                    assert geq.all()
+                elif i == 1:              # the repeated top
+                    assert geq.any() and not geq.all()
+            assert gprev is (tail_obj if i == 0 else prev_padded)
+            prev_padded = gp
+        tail_obj, last = prev_padded, tail
+
+
+def test_block_window_declines_odd_width_quarter():
+    ys, us, vs = _window(62, 2, 24, 32)
+    assert tcache.prime_block_video_device(
+        ys, us, vs, 12, 15, False, _block_opts(2), {}) is None
+    assert tcache.prime_block_video_device(
+        ys, us, vs, 12, 15, False, _block_opts(1), {}) is not None
+
+
+def test_device_frame_reads_blank_rows_outside_the_words():
+    """A padded frame's rows outside the words (the odd-height pad row)
+    read as zero words, on top (y0 = -1) or at the bottom."""
+    words = torch.arange(1, 2 * 3 * 2 + 1, dtype=torch.int32).reshape(2, 3, 2)
+    top = np.asarray(tcache.DeviceFrame(words, 1, 4, 2, -1))
+    bottom = np.asarray(tcache.DeviceFrame(words, 1, 4, 2))
+    w = words[1].numpy()
+    assert top.shape == bottom.shape == (4, 2, 4)
+    np.testing.assert_array_equal(top.view(np.int32)[..., 0],
+                                  np.concatenate([[[0, 0]], w]))
+    np.testing.assert_array_equal(bottom.view(np.int32)[..., 0],
+                                  np.concatenate([w, [[0, 0]]]))
+    assert tcache.DeviceFrame(words, 0, 4, 2).reshape(2, 2, 2, 1, 4).shape \
+        == (2, 2, 2, 1, 4)
+
+
+@pytest.mark.parametrize("quarter,upper,c256", [(True, False, False),
+                                                (True, True, True),
+                                                (False, False, False)])
+def test_block_canvas_single_frame_route_matches_jax(quarter, upper, c256):
+    """Frames that no window primed (odd-width quarter frames take this
+    route in the video source) go through the canvas's single-frame
+    route: widened, padded to an even height, the block op on one frame,
+    the diff against the previous frame on the host.  Three frames of
+    odd width and height, the later ones repeating part of the first:
+    the stream equals the JAX canvas's."""
+    from timg_tpu.render.ansi import UnicodeBlockCanvas as JCanvas
+    from timg_tpu.render.sequencer import SeqType
+    from timg_tpu_torch.render import ansi as tansi
+
+    class Sink:
+        def __init__(self):
+            self.data = []
+
+        def write_buffer(self, buf, seq_type, end_ms):
+            self.data.append(buf)
+
+    rng = np.random.default_rng(63)
+    frames = rng.integers(0, 256, (3, 11, 15, 4), dtype=np.uint8)
+    frames[..., 3] = 255
+    frames[1, :6] = frames[0, :6]
+    frames[2] = frames[1]
+    outs = []
+    before = dict(tansi.EMITTED)
+    for cls in (JCanvas, tansi.UnicodeBlockCanvas):
+        sink = Sink()
+        canvas = cls(sink, use_quarter=quarter, use_upper_half_block=upper,
+                     use_256_color=c256)
+        for i, f in enumerate(frames):
+            canvas.send(2, -11 if i else 0, f.copy(),
+                        SeqType.ANIMATION_FRAME)
+        outs.append(sink.data)
+    assert outs[1] == outs[0]
+    assert outs[1][2] == b""          # an unchanged frame writes nothing
+    assert sum(tansi.EMITTED.values()) - sum(before.values()) == 3

@@ -3,10 +3,11 @@
 Same flag surface, option resolution, pacing and exit codes as the JAX
 package's CLI; the sources and the canvas are the port's, and the
 jax-only parts (compile cache, forced-host pinning, JAX profiler hook,
-wedged-device exit) are gone.  The ported slices run ``-p sixel`` on
-opaque 4:2:0 video with every ``--dither`` mode (cube, libsixel,
+wedged-device exit) are gone.  The ported slices run opaque 4:2:0
+video in ``-p sixel`` with every ``--dither`` mode (cube, libsixel,
 adaptive, and auto, which resolves to one of the latter two as the JAX
-CLI resolves it); anything else exits with a "not yet ported" message.
+CLI resolves it) and in ``-p quarter`` / ``-p half``; anything else
+(kitty, iTerm2, images) exits with a "not yet ported" message.
 The device is ``cuda`` unless TIMG_TPU_TORCH_DEVICE=cpu.
 """
 
@@ -349,22 +350,38 @@ def main(argv: Optional[List[str]] = None) -> int:
     elif present.pixelation == Pixelation.SIXEL:
         from timg_tpu_torch.term import query_supported_graphics_protocol
         present.sixel_options = query_supported_graphics_protocol().sixel
-    if present.pixelation != Pixelation.SIXEL:
+    if present.pixelation in (Pixelation.KITTY, Pixelation.ITERM2):
         return _not_ported(f"-p {_pixelation_name(present.pixelation)}")
 
     if bg_color.lower() == "none":
         display.local_alpha_handling = False
 
-    # sixel is pixel-direct: no font aspect correction by default
-    display.width_stretch = utils.get_float_env("TIMG_FONT_WIDTH_CORRECT",
-                                                1.0)
-    if tsize.font_width_px > 0:
-        display.cell_x_px = tsize.font_width_px
-    if tsize.font_height_px > 0:
-        display.cell_y_px = tsize.font_height_px
+    if is_pixel_direct(present.pixelation):
+        stretch_correct = 1.0
+    else:
+        # Plain C float math like the reference (timg.cc:825-828); the
+        # unknown-cell-size case yields 0.5*(-2)/(-1) = 1.0 via the
+        # TermSizeResult defaults (term-query.h:29-30).
+        fw, fh = tsize.font_width_px, tsize.font_height_px
+        stretch_correct = 0.5 * fh / fw if fw != 0 else float("inf")
+    display.width_stretch = utils.get_float_env(
+        "TIMG_FONT_WIDTH_CORRECT", stretch_correct)
+
+    if present.pixelation == Pixelation.HALF_BLOCK:
+        display.cell_x_px, display.cell_y_px = 1, 2
+    elif present.pixelation == Pixelation.QUARTER_BLOCK:
+        display.width_stretch *= 2
+        display.cell_x_px, display.cell_y_px = 2, 2
+    else:
+        if tsize.font_width_px > 0:
+            display.cell_x_px = tsize.font_width_px
+        if tsize.font_height_px > 0:
+            display.cell_y_px = tsize.font_height_px
     display.width = geometry_width * display.cell_x_px
     display.height = geometry_height * display.cell_y_px
-    display.sixel_batch_dither = present.sixel_dither
+    if present.pixelation == Pixelation.SIXEL:
+        # lets the video window dither its frames in the session's mode
+        display.sixel_batch_dither = present.sixel_dither
     display.resample = args.resample
 
     filelist.extend(args.files)
@@ -447,7 +464,8 @@ def main(argv: Optional[List[str]] = None) -> int:
 
     sequencer = BufferedWriteSequencer(
         output_fd,
-        allow_frame_skipping=display.allow_frame_skipping,
+        allow_frame_skipping=(display.allow_frame_skipping
+                              and is_pixel_direct(present.pixelation)),
         max_queue_len=4,
         debug_no_frame_delay=args.debug_no_frame_delay,
         interrupt_flag=lambda: interrupt_received,
@@ -523,7 +541,8 @@ def _present_images(loaded, display, present, sequencer):
     for the same session."""
     from timg_tpu_torch.render.renderer import Renderer
 
-    if present.sixel_dither == "auto":
+    if (present.pixelation == Pixelation.SIXEL
+            and present.sixel_dither == "auto"):
         present.sixel_dither = _resolve_auto_dither(loaded)
         display.sixel_batch_dither = present.sixel_dither
 
@@ -567,13 +586,23 @@ def _present_images(loaded, display, present, sequencer):
 
 def _make_canvas(sequencer, display, present):
     """The port's sixel canvas with a compression pool sized
-    queue_len + 1, like timg_tpu/cli.py:_make_canvas."""
-    from timg_tpu_torch.render.sixel_render import SixelCanvas
+    queue_len + 1, or its unicode block canvas, like
+    timg_tpu/cli.py:_make_canvas."""
+    if present.pixelation == Pixelation.SIXEL:
+        from timg_tpu_torch.render.sixel_render import SixelCanvas
 
-    return SixelCanvas(sequencer, present.sixel_options, display,
-                       dither=present.sixel_dither,
-                       executor=ThreadPoolExecutor(
-                           max_workers=sequencer.max_queue_len + 1))
+        return SixelCanvas(sequencer, present.sixel_options, display,
+                           dither=present.sixel_dither,
+                           executor=ThreadPoolExecutor(
+                               max_workers=sequencer.max_queue_len + 1))
+    from timg_tpu_torch.render.ansi import UnicodeBlockCanvas
+
+    return UnicodeBlockCanvas(
+        sequencer,
+        use_quarter=(present.pixelation == Pixelation.QUARTER_BLOCK),
+        use_upper_half_block=present.terminal_use_upper_block,
+        use_256_color=present.use_256_color,
+    )
 
 
 def _print_verbose_stats(tsize, gw, gh, display, present, sequencer,

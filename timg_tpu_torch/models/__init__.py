@@ -9,17 +9,21 @@ hand a model a frame batch, it returns per-frame escape payloads.
                                                dither="cube")
     payloads = model.render_batch(frames_u8)   # [B,H,W,4] -> list[bytes]
 
-Only the sixel model is ported; ``get`` of the JAX package's other
-names (half, quarter, kitty, iterm2) raises "not yet ported".
+The sixel, half and quarter models are ported; ``get`` of the JAX
+package's other names (kitty, iterm2) raises "not yet ported".
 """
 
+from timg_tpu_torch.models.blocks import (HalfBlockModel,  # noqa: F401
+                                          QuarterBlockModel)
 from timg_tpu_torch.models.pixel import SixelModel  # noqa: F401
 
 _REGISTRY = {
+    "half": HalfBlockModel,
+    "quarter": QuarterBlockModel,
     "sixel": SixelModel,
 }
 
-_NOT_PORTED = ("half", "quarter", "kitty", "iterm2")
+_NOT_PORTED = ("kitty", "iterm2")
 
 
 def get(name: str):

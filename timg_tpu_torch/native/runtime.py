@@ -5,8 +5,8 @@ Two libraries, each from one source in this directory, built with g++
 into ``build/`` (git-ignored) and rebuilt when their source is newer:
 
 - ``libtimg_native.so`` from ``timg_native.cc`` alone: the C sixel
-  assembler (and the polyphase resize executor ``ops/resize_np.py``
-  calls).  It needs only standard headers, so it builds on any host
+  assembler, the C ANSI block emitter (``timg_ansi_emit``) and the
+  polyphase resize executor ``ops/resize_np.py`` calls.  It needs only standard headers, so it builds on any host
   with a C++17 compiler;
 - ``libtimg_video.so`` from ``timg_video.cc``: the libav video decoder.
   It builds only where the libav headers and libraries exist; elsewhere
@@ -99,6 +99,11 @@ def _load(name: str, bind) -> Optional[ctypes.CDLL]:
 
 
 def _bind_native(lib: ctypes.CDLL) -> ctypes.CDLL:
+    lib.timg_ansi_emit.restype = ctypes.c_long
+    lib.timg_ansi_emit.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_char_p]
     lib.timg_sixel_encode.restype = ctypes.c_long
     lib.timg_sixel_encode.argtypes = [
         ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,

@@ -1,5 +1,6 @@
-"""Device-resident sixel video window (counterpart of
-timg_tpu/render/plane_cache.py:prime_sixel_video_device).
+"""Device-resident video windows (counterpart of
+timg_tpu/render/plane_cache.py: prime_sixel_video_device and
+prime_block_video_device).
 
 One window of 4:2:0 frames goes host->device once as Y/U/V planes
 (1.5 B/px); conversion, resize and sixel-band padding run on the device,
@@ -10,10 +11,16 @@ then the dither of the session's mode:
   integer table kernel on the device;
 - ``adaptive``: one median-cut tree per video, built on the host from the
   window's first frame, and the tree kernel.
-Only the uint8 index planes come back.  The frames handed to the sink
-are DeviceFrame placeholders: the canvas needs only their shape and the
-primed plane, so the RGBA words stay on the device unless someone
-converts a frame to an array.
+Only the uint8 index planes come back.
+
+The block window (``-p quarter`` / ``-p half``) runs the same convert and
+resize, then the block cells of every frame (ops/blocks.py; the CUDA
+kernel on the card) with the window diff, frame 0 against the previous
+window's last frame; only the glyph, fg, bg and eq planes come back.
+
+The frames handed to the sink are DeviceFrame placeholders: the canvas
+needs only their shape and the primed planes, so the RGBA words stay on
+the device unless someone converts a frame to an array.
 """
 
 from __future__ import annotations
@@ -26,6 +33,7 @@ import torch
 from torch import nn
 
 from timg_tpu_torch.ops import backend
+from timg_tpu_torch.ops import blocks as blocks_op
 from timg_tpu_torch.ops import libsixel_quant as lsq
 from timg_tpu_torch.ops.libsixel_kernel import (build_bucket_tables,
                                                 fs_dither_table_fused,
@@ -36,6 +44,7 @@ from timg_tpu_torch.ops.sixel_kernel import (fs_dither_cube_fused,
 from timg_tpu_torch.ops.sixel_np import median_cut_tree
 from timg_tpu_torch.ops.sixel_runs import fetch_planes_or_runs
 from timg_tpu_torch.ops.yuv import yuv420_to_rgba_words
+from timg_tpu_torch.utils import get_bool_env
 
 _MAX = 64
 
@@ -70,6 +79,7 @@ class PlaneCache:
         return entry[1]
 
 
+BLOCK_PLANES = PlaneCache()
 SIXEL_PLANES = PlaneCache()
 
 
@@ -80,25 +90,38 @@ def not_ported(what: str) -> NotImplementedError:
 class DeviceFrame:
     """Placeholder for one frame of a device-resident window: a shape
     for the sink contract, and the pixels on demand (one device->host
-    copy of that frame only)."""
+    copy of that frame only).  It shows rows ``y0 .. y0 + h`` of frame
+    ``i`` of the words; a row outside the words (the block window's
+    odd-height pad row) reads as blank, all zero."""
 
-    __slots__ = ("_words", "_i", "_th", "shape", "_cache")
+    __slots__ = ("_words", "_i", "_h", "_y0", "shape", "_cache")
 
-    def __init__(self, words_dev: torch.Tensor, i: int, th: int, tw: int):
-        self._words = words_dev      # [B, >=th, tw] int32 on the device
+    def __init__(self, words_dev: torch.Tensor, i: int, h: int, tw: int,
+                 y0: int = 0):
+        self._words = words_dev      # [B, rows, tw] int32 on the device
         self._i = i
-        self._th = th
-        self.shape = (th, tw, 4)
+        self._h = h
+        self._y0 = y0                # first row (-1: a blank row on top)
+        self.shape = (h, tw, 4)
         self._cache = None
 
     def __array__(self, dtype=None, copy=None):
         if self._cache is None:
-            w = self._words[self._i, :self._th].cpu().numpy()
+            rows = self._words.shape[1]
+            lo, hi = max(self._y0, 0), min(self._y0 + self._h, rows)
+            w = np.zeros(self.shape[:2], np.int32)
+            w[lo - self._y0:hi - self._y0] = \
+                self._words[self._i, lo:hi].cpu().numpy()
             self._cache = w.view(np.uint8).reshape(self.shape)
         a = self._cache
         if dtype is not None and np.dtype(dtype) != a.dtype:
             a = a.astype(dtype)
         return a
+
+    def reshape(self, *shape):
+        # the block canvas diffs against the previous frame on the host
+        # when no device mask applies
+        return self.__array__().reshape(*shape)
 
 
 class VideoStage(nn.Module):
@@ -142,7 +165,6 @@ def prime_sixel_video_device(ys, us, vs, th: int, tw: int,
         raise not_ported(f"--dither={mode}")
     if resample != "lean":
         raise not_ported("--resample=sws-bitexact")
-    dev = backend.device()
     b = ys.shape[0]
     padded_h = th + 5 - (th + 5) % 6
     bg = options.bgcolor_getter() if options.bgcolor_getter else None
@@ -152,15 +174,8 @@ def prime_sixel_video_device(ys, us, vs, th: int, tw: int,
                    | (255 << 24))
         if bg_word >= 1 << 31:     # RGBA word with alpha set: wrap to
             bg_word -= 1 << 32     # the signed int32 the planes carry
-    key = (ys.shape[1], ys.shape[2], th, tw, full_range, padded_h, bg_word,
-           dev)
-    stage = state.get("video_stage")
-    if stage is None or stage[0] != key:
-        stage = (key, VideoStage(th, tw, full_range, padded_h, bg_word))
-        state["video_stage"] = stage
-    planes = [torch.from_numpy(np.ascontiguousarray(p)).to(dev)
-              for p in (ys, us, vs)]
-    words = stage[1](*planes)                    # [B, padded_h, tw]
+    words = stage_window(state, ys, us, vs, th, tw, full_range, padded_h,
+                         bg_word)                # [B, padded_h, tw]
     if mode == "cube":
         indices = fs_dither_cube_fused(words, padded_h, tw, out_u8=True)
         palettes, quantizer = [None] * b, None
@@ -184,6 +199,72 @@ def prime_sixel_video_device(ys, us, vs, th: int, tw: int,
     frames = [DeviceFrame(words, i, th, tw) for i in range(b)]
     for i, frame in enumerate(frames):
         SIXEL_PLANES.put(frame, (entries[i], palettes[i], quantizer))
+    return frames
+
+
+def stage_window(state: dict, ys, us, vs, th: int, tw: int,
+                 full_range: bool, padded_h: int,
+                 bg_word: int) -> torch.Tensor:
+    """The window's planes to the device, through the VideoStage of this
+    geometry (kept in ``state``): [B, padded_h, tw] int32 words."""
+    dev = backend.device()
+    key = (ys.shape[1], ys.shape[2], th, tw, full_range, padded_h, bg_word,
+           dev)
+    stage = state.get("video_stage")
+    if stage is None or stage[0] != key:
+        stage = (key, VideoStage(th, tw, full_range, padded_h, bg_word))
+        state["video_stage"] = stage
+    planes = [torch.from_numpy(np.ascontiguousarray(p)).to(dev)
+              for p in (ys, us, vs)]
+    return stage[1](*planes)
+
+
+def prime_block_video_device(ys, us, vs, th: int, tw: int,
+                             full_range: bool, options, state: dict,
+                             resample: str = "lean"):
+    """Fused device window for opaque 4:2:0 video in block sessions
+    (``-p quarter`` / ``-p half``; timg_tpu/render/plane_cache.py:
+    prime_block_video_device): convert + resize, then the block cells
+    and the window diff of every frame on the device, fetching only the
+    glyph, fg, bg and eq planes.  The previous window's last frame rides
+    along in ``state`` so the window-boundary diff is the device's too.
+
+    Returns B DeviceFrame placeholders and parks each frame's planes in
+    BLOCK_PLANES, or None for odd-width quarter frames, which the canvas
+    renders one by one (widened as the reference reads them)."""
+    if options.cell_x_px > 2 or options.cell_y_px != 2:
+        return None
+    quarter = options.cell_x_px == 2
+    if quarter and tw % 2:
+        return None
+    if resample != "lean":
+        raise not_ported("--resample=sws-bitexact")
+    b = ys.shape[0]
+    use_upper = get_bool_env("TIMG_USE_UPPER_BLOCK")
+    ph = th + th % 2
+    top = 1 if (th % 2 and not use_upper) else 0   # blank row on top
+
+    words = stage_window(state, ys, us, vs, th, tw, full_range, th, 0)
+    tail = state.get("block_tail")
+    cells = blocks_op.quarter_cells if quarter else blocks_op.half_cells
+    glyph_d, fg_d, bg_d, eq_d = cells(words, use_upper,
+                                      tail[0] if tail else None)
+    glyph = glyph_d.cpu().numpy()
+    fg = fg_d.cpu().numpy().view(np.uint8).reshape(fg_d.shape + (4,))
+    bg = bg_d.cpu().numpy().view(np.uint8).reshape(bg_d.shape + (4,))
+    eq = eq_d.cpu().numpy()     # eq[i]: frame i vs frame i-1 or the tail
+
+    frames = [DeviceFrame(words, i, th, tw) for i in range(b)]
+    # One object per padded frame, shared between frame i's "padded" slot
+    # and frame i+1's "prev" slot: the canvas takes the device's diff mask
+    # only when ``cached_prev is self._prev_padded`` (render/ansi.py).
+    padded = [DeviceFrame(words, i, ph, tw, -top) for i in range(b)]
+    prevs = [tail[1] if tail else None] + padded[:-1]
+    eqs = [eq[0] if tail else None] + list(eq[1:])
+    for i, frame in enumerate(frames):
+        BLOCK_PLANES.put(frame, (padded[i], glyph[i], fg[i], bg[i],
+                                 prevs[i], eqs[i]))
+    state["block_tail"] = (words[-1], padded[-1])
     return frames
 
 

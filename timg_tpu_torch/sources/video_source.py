@@ -10,9 +10,12 @@ timestamps at k/fps (:356-360), rewind-and-loop via seek (:302-307),
 (:342-347).
 
 When the decoded stream is 8-bit 4:2:0 the raw Y/U/V planes ship to the
-device at 1.5 bytes/pixel and the port's device flow
-(render/plane_cache.prime_sixel_video_device) converts, resizes and
-dithers them there.  Streams that would take another path in the
+device at 1.5 bytes/pixel and the port's device flow converts and
+resizes them there, then dithers them (sixel sessions,
+render/plane_cache.prime_sixel_video_device) or picks the block cells
+(half and quarter sessions, prime_block_video_device).  Odd-width
+quarter frames come back to the host after the resize, and the canvas
+renders them one by one.  Streams that would take another path in the
 reference (RGBA decode, transparent-capable suffixes, swscale
 resampling) are not yet ported.
 """
@@ -29,7 +32,9 @@ import numpy as np
 from timg_tpu_torch.geometry import calc_scale_to_fit
 from timg_tpu_torch.options import NOT_INITIALIZED, DisplayOptions
 from timg_tpu_torch.render.plane_cache import (not_ported,
-                                               prime_sixel_video_device)
+                                               prime_block_video_device,
+                                               prime_sixel_video_device,
+                                               stage_window)
 from timg_tpu_torch.render.sequencer import SeqType
 from timg_tpu_torch.sources.base import FrameSink, ImageSource
 
@@ -48,7 +53,9 @@ class VideoSource(ImageSource):
         self._fps = 25.0
         self._target = (0, 0)
         self._is_apng_like = False
-        self._sixel_state: dict = {}  # adaptive palette across windows
+        # across windows: the VideoStage, the adaptive palette, the
+        # block window's tail
+        self._sixel_state: dict = {}
 
     def load_and_scale(self, options: DisplayOptions, frame_offset: int,
                        frame_count: int) -> bool:
@@ -129,16 +136,28 @@ class VideoSource(ImageSource):
     def _process_window(self, raw: List, kind: str = "rgba"
                         ) -> List[np.ndarray]:
         """One device window: raw = list of (y, u, v) plane triples.
-        The reference's other kinds ("rgba", "scaled") and the block
-        and pixel-direct sessions are not yet ported."""
+        The reference's other kinds ("rgba", "scaled") and the
+        pixel-direct sessions are not yet ported."""
         if kind != "yuv":
             raise not_ported(f"the {kind!r} video window")
         tw, th = self._target
+        opts = self._options
         ys = np.stack([f[0] for f in raw])
         us = np.stack([f[1] for f in raw])
         vs = np.stack([f[2] for f in raw])
-        return prime_sixel_video_device(ys, us, vs, th, tw, self._full_range,
-                                        self._options, self._sixel_state)
+        if getattr(opts, "sixel_batch_dither", None) is not None:
+            return prime_sixel_video_device(ys, us, vs, th, tw,
+                                            self._full_range, opts,
+                                            self._sixel_state)
+        fast = prime_block_video_device(ys, us, vs, th, tw, self._full_range,
+                                        opts, self._sixel_state)
+        if fast is not None:
+            return fast
+        # odd-width quarter frames: converted and resized on the device,
+        # then rendered one by one by the canvas (opaque: no compose)
+        words = stage_window(self._sixel_state, ys, us, vs, th, tw,
+                       self._full_range, th, 0).cpu().numpy()
+        return list(words.view(np.uint8).reshape(words.shape + (4,)))
 
     def send_frames(self, duration_ms: float, loops: int,
                     interrupt: Callable[[], bool], sink: FrameSink) -> None:
