@@ -902,6 +902,19 @@ def library_payloads(run: str) -> list:
     return model.render_batch(rgba_frames(N_LIB, SEED + 3))
 
 
+def first_difference(a: bytes, b: bytes) -> str:
+    """Where two streams part: the first differing byte, the frame and
+    cell row it falls in (rows end in ESC[0m newline), the count of
+    differing bytes and a few bytes of each side around it."""
+    n = min(len(a), len(b))
+    i = next((k for k in range(n) if a[k] != b[k]), n)
+    rows = a[:i].count(b"\033[0m\n")
+    lo, hi = max(0, i - 24), i + 24
+    return (f"first differing byte {i} (after {rows} rows of cells), "
+            f"{sum(x != y for x, y in zip(a, b))} bytes differ; "
+            f"cuda {a[lo:hi]!r}, cpu {b[lo:hi]!r}")
+
+
 def digests(payloads: list) -> list:
     return [hashlib.sha256(p).hexdigest() for p in payloads]
 
@@ -1152,8 +1165,16 @@ def main() -> int:
                       "payloads")
                 continue
             if out != streams[mode]:
+                # a second run on the card tells a card that is not
+                # repeatable from one that repeats a different stream
+                again = main_path_stream(mode, N_MAIN[mode])
+                which = ("equals the cpu stream" if again == out else
+                         "equals the first" if again == streams[mode]
+                         else "differs from both")
                 fail(f"{mode}: cuda stream ({len(streams[mode])} B) != cpu "
-                     f"stream ({len(out)} B)")
+                     f"stream ({len(out)} B): "
+                     + first_difference(streams[mode], out)
+                     + f"; a second cuda run {which}")
             print(f"main path: {mode}: cuda stream == cpu stream")
     finally:
         for child in children.values():
