@@ -27,7 +27,10 @@ only the port (timg_tpu_torch), never jax or the JAX package.  Phases:
    median-cut tree on words (K7) and on bytes; the block kernels
    (quarter and half cells with the window diff) at 720 rows and at 719
    (odd: the blank pad row), with and without a tail, use_upper both
-   ways, and at the CLI's block geometry (1080p into -g160x48, B=8).
+   ways, and at the CLI's block geometry (1080p into -g160x48, B=8);
+   quarter cells also on a seeded noise and a flat window of 720x1280
+   words, B=32, each timed beside the bound of the operations its
+   scan needs.
    The wavefront driver is
    also checked and timed at the batches the main paths launch besides 32:
    K6, K7 and K8 at the CLI's 8-frame window, K9 and the byte tree at one
@@ -36,8 +39,9 @@ only the port (timg_tpu_torch), never jax or the JAX package.  Phases:
    its plain PyTorch version byte for byte (the resize's on CPU copies,
    the others' on the card); all are timed with CUDA events over
    back-to-back calls (the bucket build, shorter than its launch on the
-   host, also around a CUDA graph of calls) beside their bound (bytes over 3.35 TB/s or operations over 67
-   TFLOP/s, the bucket build's integer mins over 16.7 TOP/s, whichever is
+   host, also around a CUDA graph of calls) beside their bound (bytes
+   over 3.35 TB/s or float instructions over 33.45 T/s, the bucket
+   build's and K8's integer operations over 16.7 T/s, whichever is
    larger) and, where one PyTorch call computes the same function, that
    call's time;
 3. video main path: 1080p windows through the port's VideoSource window
@@ -48,9 +52,11 @@ only the port (timg_tpu_torch), never jax or the JAX package.  Phases:
    window (convert -> resize -> block cells and window diff on the card
    -> plane fetch -> UnicodeBlockCanvas), as `-g160x48 -pq|-ph -b
    black` runs it: two 8-frame windows each of quarter and half blocks,
-   so the second window's first frame diffs against the first's tail.
-   Each mode's stream must equal the same windows run with
-   TIMG_TPU_TORCH_DEVICE=cpu in a subprocess;
+   so the second window's first frame diffs against the first's tail;
+   each block mode then runs again, split into its legs a window
+   (planes, H2D, convert and resize, cells, the one fetch, emit), and
+   must write the same stream.  Each mode's stream must equal the same
+   windows run with TIMG_TPU_TORCH_DEVICE=cpu in a subprocess;
 4. library path: timg_tpu_torch.models.get("sixel") at 720x1280 on 8
    seeded 1080p RGBA frames with a transparent region (bg opaque black),
    in cube, adaptive (a tree per frame) and adaptive with
@@ -70,6 +76,7 @@ card's nvidia-smi line, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
+import contextlib
 import hashlib
 import json
 import os
@@ -107,9 +114,13 @@ LIB_RUNS = {"cube": ("cube", False, "rgba"),
 # the block models' output pixels (the library's -g160x48 canvas)
 LIB_BLOCK_SIZE = {"quarter": (96, 320), "half": (96, 160)}
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
-F32_OPS_PER_S = 67e12       # float32 outside the tensor cores; also used
-                            # for the int32 work of the table dither (K8)
-# int32 min/max: 64 lanes an SM (half the f32 rate) x 132 SMs x 1.98 GHz
+# float32 instructions outside the tensor cores: 128 lanes an SM x 132
+# SMs x 1.98 GHz (the data sheet's 67 TFLOP/s counts an FMA as two
+# operations; the kernels contract no product and sum, so each counted
+# operation is one instruction, an FMA where one is written one too)
+F32_ISSUE_PER_S = 132 * 128 * 1.98e9
+# int32 min/max and the table dither's (K8) integer work: 64 lanes an SM
+# (half the f32 rate) x 132 SMs x 1.98 GHz
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
 # operations a pixel of each dither kernel, counted from
 # csrc/fs_dither_cube.cu.  f32 policy: the row-above mix (15), the
@@ -121,11 +132,16 @@ INT32_OPS_PER_S = 132 * 64 * 1.98e9
 CUBE_OPS_PER_PX = 51
 TREE_OPS_PER_PX = 71
 TABLE_OPS_PER_PX = 83
-# float operations a quarter cell, counted from csrc/block_cells.cu: the
-# 4 linear colors (12), the 8 costs (avd4 51, four avd3 of 38, six avd2
-# of 25 and 3 sums: 356), the scan (16), the chosen colors again (12)
-# and two repacks (16).  Half cells do no float math (word compares).
-QUARTER_OPS_PER_CELL = 412
+# float operations of the quarter kernel (csrc/block_cells.cu), each one
+# instruction, compares included: a cell's fixed part (the 4 linear
+# colors with alpha 28, their total 12, the chosen candidate's sums 16,
+# two repacks of 4 divisions of 3 and 3 roots of 6: 60) and each
+# candidate's cost with the scan's two compares, counted only up to where
+# the scan stops (0: the average and avd4, 40; 1-4: avd3 with its
+# divisions, 40; 5-7: two pair distances, 20).  Half cells do no float
+# math (word compares).
+QUARTER_CELL_OPS = 116
+QUARTER_CANDIDATE_OPS = (40, 40, 40, 40, 40, 20, 20, 20)
 # bytes a cell: its words in (read once), glyph, fg, bg and eq out
 QUARTER_BYTES_PER_CELL = 16 + 10
 HALF_BYTES_PER_CELL = 8 + 10
@@ -172,11 +188,56 @@ def block_options(mode: str):
     return opts
 
 
-def main_path_stream(mode: str, n: int) -> bytes:
+BLOCK_LEGS = ("planes", "h2d", "convert_resize", "cells", "fetch", "emit")
+
+
+@contextlib.contextmanager
+def timed_block_legs(legs: dict):
+    """While open, the block window's device legs add their host-clock
+    seconds (synchronized before and after) to ``legs``: "h2d" (the
+    planes' copies in stage_window), "convert_resize" (VideoStage),
+    "cells" (the block kernel) and "fetch" (cells_to_host)."""
+    import torch
+
+    from timg_tpu_torch.ops import blocks
+    from timg_tpu_torch.render import plane_cache
+
+    def timed(keys, fn):
+        def run(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            for key, sign in keys:
+                legs[key] += sign * (time.perf_counter() - t0)
+            return out
+        return run
+
+    patches = [  # stage_window less its VideoStage is the H2D
+        (plane_cache, "stage_window", [("h2d", 1)]),
+        (plane_cache.VideoStage, "forward", [("convert_resize", 1),
+                                             ("h2d", -1)]),
+        (blocks, "quarter_cells", [("cells", 1)]),
+        (blocks, "half_cells", [("cells", 1)]),
+        (blocks, "cells_to_host", [("fetch", 1)])]
+    saved = [(owner, attr, getattr(owner, attr)) for owner, attr, _ in
+             patches]
+    for owner, attr, keys in patches:
+        setattr(owner, attr, timed(keys, getattr(owner, attr)))
+    try:
+        yield
+    finally:
+        for owner, attr, fn in saved:
+            setattr(owner, attr, fn)
+
+
+def main_path_stream(mode: str, n: int, legs: list = None) -> bytes:
     """n frames of 1080p through the port's video window, in 8-frame
     windows, dithered in ``mode`` into the port's SixelCanvas, or in
     quarter or half blocks into its UnicodeBlockCanvas; returns the
-    written stream."""
+    written stream.  Given a list ``legs`` in a block mode, appends each
+    window's legs in seconds (BLOCK_LEGS: the planes' making, a window's
+    share; ``timed_block_legs``; the canvas's emit of its frames)."""
     from concurrent.futures import ThreadPoolExecutor
 
     from timg_tpu_torch.colors import parse_color
@@ -203,7 +264,10 @@ def main_path_stream(mode: str, n: int) -> bytes:
     src._options = opts
     src._target = (tw, th)
     src._full_range = False
+    t0 = time.perf_counter()
     ys, us, vs = yuv_frames(n, SEED + 1)
+    planes_s = (time.perf_counter() - t0) * _WINDOW / n
+    timing = legs is not None and mode in BLOCK_MODES
 
     with tempfile.TemporaryDirectory() as tmp, \
             ThreadPoolExecutor(max_workers=5) as pool:
@@ -223,12 +287,21 @@ def main_path_stream(mode: str, n: int) -> bytes:
         last_h = -1
         for k in range(0, n, _WINDOW):
             window = [(ys[i], us[i], vs[i]) for i in range(k, k + _WINDOW)]
-            for j, frame in enumerate(src._process_window(window, "yuv")):
+            leg = dict.fromkeys(BLOCK_LEGS, 0.0)
+            leg["planes"] = planes_s
+            with (timed_block_legs(leg) if timing
+                  else contextlib.nullcontext()):
+                frames = src._process_window(window, "yuv")
+            t0 = time.perf_counter()
+            for j, frame in enumerate(frames):
                 seq = (SeqType.START_OF_ANIMATION if k + j == 0
                        else SeqType.ANIMATION_FRAME)
                 sink(src.indentation, -last_h if last_h > 0 else 0, frame,
                      seq, 40.0 * (k + j + 1))
                 last_h = frame.shape[0]
+            leg["emit"] = time.perf_counter() - t0
+            if timing:
+                legs.append(leg)
         canvas.close()
         sequencer.flush()
         sequencer.shutdown()
@@ -285,7 +358,7 @@ def max_abs_err(a, b) -> int:
     return int((a.long() - b.long()).abs().max())
 
 
-def bound(nbytes: float, nops: float, ops_per_s: float = F32_OPS_PER_S
+def bound(nbytes: float, nops: float, ops_per_s: float = F32_ISSUE_PER_S
           ) -> dict:
     """The least time the card could take: the larger of the bytes over
     the HBM rate and the operations over their peak rate (f32 unless
@@ -463,7 +536,7 @@ def resize_passes(words, words_cpu) -> dict:
         library_ms=cuda_ms(lambda: torch.matmul(
             torch.matmul(mv.T, planes), mw), 20),
         **bound(N_WINDOW * (H_4K * W_4K + oh * ow) * 4,
-                N_WINDOW * 3 * macs * 2))
+                N_WINDOW * 3 * macs))
     print(f"kernels: resize (two passes) {H_4K}x{W_4K} -> {oh}x{ow}, "
           f"B={N_WINDOW}: equal to plain (CPU); {r['ms']:.6f} ms, bound "
           f"{r['bound_ms']:.6f} ms ({r['bound_by']}), band matmuls "
@@ -473,15 +546,83 @@ def resize_passes(words, words_cpu) -> dict:
     return r
 
 
+def scan_depth(words):
+    """How many candidates the quarter kernel's scan computes in each cell
+    of [B, th, tw] words (th even): up to the first new best below 1, all
+    8 without one, none where a transparency override decides the cell.
+    From the plain version's costs (ops/blocks.py)."""
+    import torch
+
+    from timg_tpu_torch.ops.blocks import _TRANSPARENT_THRESHOLD, _avd, _lin
+
+    b, th, tw = words.shape
+    px = words.contiguous().view(torch.uint8).reshape(b, th // 2, 2,
+                                                      tw // 2, 2, 4)
+    tl, tr, bl, br = (px[:, :, y, :, x] for y in (0, 1) for x in (0, 1))
+    transparent = [p[..., 3] < _TRANSPARENT_THRESHOLD for p in
+                   (tl, tr, bl, br)]
+    decided = (transparent[0] & transparent[1]) | (transparent[2]
+                                                   & transparent[3])
+    tl, tr, bl, br = _lin(tl), _lin(tr), _lin(bl), _lin(br)
+
+    def pair(x, y, z, w):
+        return _avd(x, y)[1] + _avd(z, w)[1]
+
+    cost = torch.stack([_avd(tl, tr, bl, br)[1], _avd(tr, bl, br)[1],
+                        _avd(tl, bl, br)[1], _avd(tl, tr, br)[1],
+                        _avd(tl, tr, bl)[1], pair(tr, br, tl, bl),
+                        pair(tr, bl, tl, br), pair(tl, tr, bl, br)], -1)
+    run_min = torch.cat([torch.full_like(cost[..., :1], 1e12),
+                         torch.cummin(cost, -1).values[..., :-1]], -1)
+    stops = (cost < run_min) & (cost < 1.0)
+    depth = torch.where(stops.any(-1),
+                        torch.argmax(stops.to(torch.uint8), -1) + 1, 8)
+    return torch.where(decided, 0, depth)
+
+
+def quarter_ops(words) -> tuple:
+    """Float operations the quarter kernel does on these words (the
+    scan's depth as this data needs it) and the mean depth."""
+    import torch
+
+    depth = scan_depth(words)
+    ops = depth.numel() * QUARTER_CELL_OPS + sum(
+        int((depth > k).sum()) * n for k, n in
+        enumerate(QUARTER_CANDIDATE_OPS))
+    return ops, float(depth.to(torch.float64).mean())
+
+
+def block_windows(w720) -> dict:
+    """The quarter kernel's other B=32 windows of 720x1280 words beside
+    the seeded one: "noise" (seeded uniform bytes, opaque: no cell's scan
+    stops early) and "flat" (one opaque color a frame: every scan stops
+    at candidate 0)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(SEED + 5)
+    noise = rng.integers(0, 256, (N_KERNEL, OUT_H, OUT_W, 4), np.uint8)
+    noise[..., 3] = 255
+    flat = np.empty_like(noise)
+    flat[...] = rng.integers(0, 256, (N_KERNEL, 1, 1, 4), np.uint8)
+    flat[..., 3] = 255
+    return {"seeded": w720} | {
+        name: torch.from_numpy(img.view(np.int32)[..., 0].copy()).to(
+            w720.device) for name, img in (("noise", noise), ("flat", flat))}
+
+
 def block_phase(words, w720) -> dict:
     """The block kernels (quarter_cells, half_cells): byte-equal to their
     plain versions on the card at B=32 on the 720x1280 words (even
     height) and on their first 719 rows (odd: the blank pad row), with
-    and without a tail, use_upper both ways; then at the CLI's geometry
-    (1080p into -g160x48, B=8, resized by the resize kernel here).
-    Timed at B=32, 720 rows, with the diff against a tail, beside the
-    bound and the plain version, by events over calls (``ms``) and in a
-    CUDA graph (``graph_ms``, device time), and so at B=8."""
+    and without a tail, use_upper both ways; quarter cells also on a
+    noise and a flat window (``block_windows``); then at the CLI's
+    geometry (1080p into -g160x48, B=8, resized by the resize kernel
+    here).  Timed at B=32, 720 rows, with the diff against a tail, beside
+    the bound and the plain version, by events over calls (``ms``) and in
+    a CUDA graph (``graph_ms``, device time), and so at B=8; quarter
+    cells also on each window, with the bound of the operations that
+    window's scan needs."""
     import torch
 
     from timg_tpu_torch.geometry import calc_scale_to_fit
@@ -490,6 +631,7 @@ def block_phase(words, w720) -> dict:
 
     odd = w720[:, :OUT_H - 1].contiguous()
     tails = {OUT_H: w720[-1].clone(), OUT_H - 1: odd[0].clone()}
+    windows = block_windows(w720)
     cli = {}
     for mode in BLOCK_MODES:
         tw, th, _ = calc_scale_to_fit(IN_W, IN_H, block_options(mode))
@@ -504,6 +646,9 @@ def block_phase(words, w720) -> dict:
         name = f"{mode}_cells"
         cases = [(w, up, tail) for w in (w720, odd) for up in (False, True)
                  for tail in (None, tails[w.shape[1]])]
+        if mode == "quarter":
+            cases += [(w, False, w[-1].clone()) for k, w in windows.items()
+                      if k != "seeded"]
         cases.append((cli[mode], False, cli[mode][-1].clone()))
         errs = []
         for w, up, tail in cases:
@@ -519,7 +664,7 @@ def block_phase(words, w720) -> dict:
                                                      else 1))
         nbytes = cells * (QUARTER_BYTES_PER_CELL if mode == "quarter"
                           else HALF_BYTES_PER_CELL) + OUT_H * OUT_W * 4
-        nops = cells * QUARTER_OPS_PER_CELL if mode == "quarter" else 0
+        nops = quarter_ops(w720)[0] if mode == "quarter" else 0
         tail = tails[OUT_H]
         results[name] = dict(
             max_abs_err=max(errs),
@@ -529,7 +674,9 @@ def block_phase(words, w720) -> dict:
             library_ms=None,     # no PyTorch call computes it
             **bound(nbytes, nops))
         w8, tail8 = cli[mode], cli[mode][-1].clone()
-        ms8 = cuda_ms(lambda: kern(w8, False, tail8), 20)
+        # the call's host time exceeds its device time here: many calls
+        # average the shared host's noise
+        ms8 = cuda_ms(lambda: kern(w8, False, tail8), 200)
         graph8 = graph_ms(lambda: kern(w8, False, tail8))
         plain8 = cuda_ms(lambda: plain(w8, False, tail8), 3)
         print(f"kernels: {name} {OUT_H}x{OUT_W} and {OUT_H - 1}x{OUT_W} "
@@ -539,6 +686,21 @@ def block_phase(words, w720) -> dict:
               f"plain; B={N_KERNEL}: {results[name]['graph_ms']:.6f} ms in "
               f"a CUDA graph; B={N_WINDOW}: {ms8:.6f} ms by events, "
               f"{graph8:.6f} ms in a CUDA graph, plain {plain8:.6f} ms")
+        if mode != "quarter":
+            continue
+        results[name]["windows"] = {}
+        for k, w in windows.items():
+            ops, depth = quarter_ops(w)
+            t = w[-1].clone()
+            r = dict(ms=cuda_ms(lambda: kern(w, False, t), 20),
+                     graph_ms=graph_ms(lambda: kern(w, False, t)),
+                     mean_depth=depth, **bound(nbytes, ops))
+            results[name]["windows"][k] = r
+            print(f"kernels: quarter_cells {k} window, B={N_KERNEL} "
+                  f"{OUT_H}x{OUT_W}: equal to plain; {r['graph_ms']:.6f} ms "
+                  f"in a CUDA graph, {r['ms']:.6f} ms by events; "
+                  f"{depth:.4f} candidates a cell, {ops} float operations, "
+                  f"bound {r['bound_ms']:.6f} ms ({r['bound_by']})")
     return results
 
 
@@ -596,7 +758,7 @@ def kernel_phase(dev):
         library_ms=cuda_ms(lambda: torch.matmul(
             torch.matmul(mv.T, planes), mw), 20),
         **bound(N_KERNEL * (IN_H * IN_W + OUT_H * OUT_W) * 4,
-                N_KERNEL * 3 * macs * 2))
+                N_KERNEL * 3 * macs))
     del planes
     window = words[:N_WINDOW].contiguous()
     ms = cuda_ms(lambda: resize_kernel.resize_video_words_cuda(
@@ -728,7 +890,7 @@ def kernel_phase(dev):
         library_ms=None,
         **bound(px726 * (4 + 1) + N_KERNEL * (lib.N_BUCKETS
                                               + lib.PALETTE_SIZE * 4 + 4),
-                px726 * TABLE_OPS_PER_PX))
+                px726 * TABLE_OPS_PER_PX, INT32_OPS_PER_S))
 
     # adaptive: one median-cut tree from the padded window's first frame
     first = padded[0].cpu().numpy().view(np.uint8).reshape(OUT_H + 6,
@@ -1090,6 +1252,17 @@ def main() -> int:
             print(f"main path: {mode}: {n} frames in {t_main:.2f} s (host "
                   f"clock, assembly included), {len(stream)} bytes, "
                   f"launches {counts}")
+            if mode in BLOCK_MODES:   # again, split into its legs
+                legs = []
+                if main_path_stream(mode, n, legs) != stream:
+                    fail(f"main path {mode}: a second run on the card "
+                         "wrote another stream")
+                block_frames += n
+                for k, leg in enumerate(legs):
+                    print(f"main path: {mode} window {k} legs (host clock, "
+                          "synchronized): " + ", ".join(
+                              f"{key} {leg[key] * 1e3:.3f} ms"
+                              for key in BLOCK_LEGS))
             for k in PATH_KERNELS[mode]:
                 if counts[k] <= 0:
                     fail(f"main path {mode} launched no {k} kernel")

@@ -21,8 +21,10 @@ FORBIDDEN = ("jax", "jaxlib", "timg_tpu")
 
 def _port_sources():
     out = [os.path.join(REPO, "chip_smoke.py")]
-    for root, _, files in os.walk(PORT):
-        out += [os.path.join(root, f) for f in files if f.endswith(".py")]
+    for top in (PORT, os.path.join(REPO, "tools")):
+        for root, _, files in os.walk(top):
+            out += [os.path.join(root, f) for f in files
+                    if f.endswith(".py")]
     return sorted(out)
 
 
@@ -39,8 +41,8 @@ def _imported_modules(path):
 
 
 def test_no_module_of_the_port_imports_jax_or_timg_tpu():
-    """An AST walk of every .py under timg_tpu_torch/ and chip_smoke.py,
-    function-level imports included."""
+    """An AST walk of every .py under timg_tpu_torch/ and tools/ and of
+    chip_smoke.py, function-level imports included."""
     sources = _port_sources()
     assert len(sources) > 30
     bad = [f"{os.path.relpath(p, REPO)}:{line}: {mod}"

@@ -815,117 +815,255 @@ def _block_words(seed, b, th, tw):
     return torch.from_numpy(img.view(np.int32)[..., 0].copy())
 
 
+F32 = np.float32
+
+
+def _fma32(a, b, c):
+    """fmaf on float32 arrays: a * b + c rounded once.  a * b is exact in
+    float64; TwoSum gives the error of the float64 sum, which settles a
+    sum that lands on a float32 midpoint."""
+    p = np.asarray(a, np.float64) * np.asarray(b, np.float64)
+    c = np.asarray(c, np.float64)
+    s = p + c
+    bb = s - p
+    err = (p - (s - bb)) + (c - bb)
+    y = s.astype(F32)
+    up = np.nextafter(y, F32(np.inf))
+    down = np.nextafter(y, F32(-np.inf))
+    y = np.where((s == (y + up.astype(np.float64)) / 2) & (err > 0), up, y)
+    return np.where((s == (y + down.astype(np.float64)) / 2) & (err < 0),
+                    down, y)
+
+
+def _div_n(s, n):
+    """block_cells.cu div_n: s * (1/n), corrected once by the residual."""
+    n = np.asarray(n).astype(F32)
+    inv = F32(1) / n
+    q = s * inv
+    return _fma32(_fma32(-q, n, s), inv, q)
+
+
+def _root(v, approx):
+    """block_cells.cu root with ``approx`` as its approximate root of v:
+    the nearest integer, less one where its square exceeds v, then
+    clamped to 255."""
+    k = np.rint(approx).astype(F32)
+    k = np.where(k * k > v, k - F32(1), k)
+    return np.minimum(k, F32(255)).astype(np.uint8)
+
+
+def _repack_lattice():
+    """Every value the repack's root is fed: a pixel's square, m * 0.5,
+    m * 0.25 and rn(m / 3) of the integer sums m of 2, 4 and 3 squares."""
+    return np.unique(np.concatenate([
+        (np.arange(256) ** 2).astype(F32),
+        np.arange(2 * 65025 + 1).astype(F32) * F32(0.5),
+        np.arange(4 * 65025 + 1).astype(F32) * F32(0.25),
+        np.arange(3 * 65025 + 1).astype(F32) / F32(3)]))
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 4])
+def test_block_kernel_division_is_exact_on_every_sum(n):
+    """div_n equals the correctly rounded division on every integer sum
+    of n squares of bytes (0..195,075 for n = 3; alpha sums are within
+    it), where the reciprocal product alone is off for a third of the
+    sums of three."""
+    s = np.arange(n * 65025 + 1).astype(F32)
+    want = s / F32(n)
+    np.testing.assert_array_equal(_div_n(s, n), want)
+    if n == 3:
+        assert int((s * (F32(1) / F32(3)) != want).sum()) == 65024
+
+
+@pytest.mark.parametrize("approx", ["exact", "low", "high", "-0.49",
+                                    "+0.49"])
+def test_block_kernel_root_is_exact_on_the_repack_lattice(approx):
+    """root equals (uint8)min(sqrtf(v), 255) on all 390,151 values the
+    repack takes, with its approximate root exact, off by 2^-10 of
+    itself either way, or off by 0.49."""
+    v = _repack_lattice()
+    assert len(v) == 390151
+    want = np.minimum(np.sqrt(v), F32(255)).astype(np.uint8)
+    s = np.sqrt(v.astype(np.float64))
+    s = {"exact": s, "low": s * (1 - 2.0 ** -10),
+         "high": s * (1 + 2.0 ** -10), "-0.49": s - 0.49,
+         "+0.49": s + 0.49}[approx]
+    np.testing.assert_array_equal(_root(v, s), want)
+
+
+@pytest.mark.parametrize("shift", [0, 1, 5, 13])
+def test_plain_repack_root_is_exact_on_the_repack_lattice(shift):
+    """The plain version's repack takes every value of the lattice to
+    (uint8)min(sqrtf(v), 255), wherever the value sits in the tensor (the
+    lattice rolled by ``shift``, beside alphas, as the plain version
+    lays out its colors)."""
+    v = np.roll(_repack_lattice(), shift)
+    want = np.minimum(np.sqrt(v), F32(255)).astype(np.uint8)
+    lin = np.zeros((len(v), 4), F32)
+    lin[:, 0] = v
+    lin[:, 3] = 255
+    got = tblocks._repack(torch.from_numpy(lin)).numpy()
+    np.testing.assert_array_equal(got[:, 0], want)
+
+
+@pytest.mark.cuda
+def test_plain_repack_root_is_exact_on_the_card(cuda_device):
+    """The plain version's repack on CUDA tensors, on the whole lattice."""
+    v = _repack_lattice()
+    lin = torch.zeros((len(v), 4), dtype=torch.float32)
+    lin[:, 0] = torch.from_numpy(v)
+    got = tblocks._repack(lin.to(cuda_device)).cpu().numpy()
+    np.testing.assert_array_equal(
+        got[:, 0], np.minimum(np.sqrt(v), F32(255)).astype(np.uint8))
+
+
+def _sq3(d):
+    return (d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1]) \
+        + d[..., 2] * d[..., 2]
+
+
+def test_block_kernel_pair_cost_equals_the_reference_avd():
+    """pair_cost's (sq3(x - y) + sq3(z - w)) * 0.5 equals the
+    reference's avd2(x, y) + avd2(z, w) (the distances to each pair's
+    average, framebuffer.h:177-194) bit for bit, on seeded linear colors
+    and on near-equal pairs."""
+    rng = np.random.default_rng(7)
+    n = 400_000
+    x, y, z, w = ((rng.integers(0, 256, (n, 3)) ** 2).astype(F32)
+                  for _ in range(4))
+    near = np.clip(np.sqrt(x).astype(int)
+                   + rng.integers(-2, 3, (n, 3)), 0, 255)
+    y[: n // 2] = (near[: n // 2] ** 2).astype(F32)
+
+    def avd2(a, b):
+        m = (a + b) * F32(0.5)
+        return _sq3(a - m) + _sq3(b - m)
+
+    want = avd2(x, y) + avd2(z, w)
+    got = (_sq3(x - y) + _sq3(z - w)) * F32(0.5)
+    np.testing.assert_array_equal(got, want)
+
+
+# the pixels each quarter candidate's fg averages (block_cells.cu
+# kFgMasks: tl 1, tr 2, bl 4, br 8), candidate 7 with use_upper last
+FG_MASKS = np.array([15, 1, 2, 4, 8, 5, 9, 12, 3])
+
+
+def _cell_pixels(w, top, cw):
+    """[b, th, tw, 4] bytes -> each cell's [b, h2, tw / cw, 2 * cw, 4]
+    pixels (tl, tr, bl, br or top, bottom) read by index, as the kernel
+    reads them: row 2 * r + dy - top of the words, blank outside."""
+    b, th, tw, _ = w.shape
+    h2 = (th + 1) // 2
+    rows = 2 * np.arange(h2)[:, None] + np.arange(2)[None, :] - top
+    inside = (rows >= 0) & (rows < th)
+    px = np.where(inside[None, :, :, None, None],
+                  w[:, np.clip(rows, 0, th - 1)], 0)
+    px = px.reshape(b, h2, 2, tw // cw, cw, 4).transpose(0, 1, 3, 2, 4, 5)
+    return px.reshape(b, h2, tw // cw, 2 * cw, 4)
+
+
+def _emulate_quarter(px, use_upper):
+    """The quarter kernel's per-thread algorithm in numpy float32 over
+    all cells at once: the exact sums, the costs by its routines, the
+    lazy scan (a cell stops taking candidates where the kernel's thread
+    stops computing them; none where an override decides), the chosen
+    candidate's colors from its mask, the overrides.  Returns (glyph,
+    fg, bg, depth), depth the candidates each cell computed."""
+    f = px.astype(F32)
+    lin = np.concatenate([f[..., :3] * f[..., :3], f[..., 3:]], axis=-1)
+    tl, tr, bl, br = (lin[..., j, :] for j in range(4))
+    total = ((tl + tr) + bl) + br
+
+    def avd(m, *vs):
+        acc = _sq3(vs[0][..., :3] - m[..., :3])
+        for v in vs[1:]:
+            acc = acc + _sq3(v[..., :3] - m[..., :3])
+        return acc
+
+    def pair(x, y):
+        return _sq3(x[..., :3] - y[..., :3])
+
+    costs = [
+        lambda: avd(total * F32(0.25), tl, tr, bl, br),
+        lambda: avd(_div_n(total - tl, 3), tr, bl, br),
+        lambda: avd(_div_n(total - tr, 3), tl, bl, br),
+        lambda: avd(_div_n(total - bl, 3), tl, tr, br),
+        lambda: avd(_div_n(total - br, 3), tl, tr, bl),
+        lambda: (pair(tr, br) + pair(tl, bl)) * F32(0.5),
+        lambda: (pair(tr, bl) + pair(tl, br)) * F32(0.5),
+        lambda: (pair(tl, tr) + pair(bl, br)) * F32(0.5)]
+    clear = px[..., 3] >= 0x60
+    top_t = ~clear[..., 0] & ~clear[..., 1]
+    bot_t = ~clear[..., 2] & ~clear[..., 3]
+    best = np.full(top_t.shape, 1e12, F32)
+    chosen = np.zeros(top_t.shape, np.int64)
+    depth = np.zeros(top_t.shape, np.int64)
+    stopped = top_t | bot_t
+    for k, cost_of in enumerate(costs):
+        live = ~stopped
+        depth += live
+        cost = cost_of()
+        better = live & (cost < best)
+        best = np.where(better, cost, best)
+        chosen = np.where(better, k, chosen)
+        stopped |= better & (cost < 1)
+
+    upper = 8 if use_upper else 7
+    glyph = np.where(chosen == 7, upper, chosen)
+    fm = FG_MASKS[np.where((chosen == 7) & use_upper, 8, chosen)]
+    glyph = np.where(bot_t, 8, glyph)
+    fm = np.where(bot_t, 3, fm)
+    glyph = np.where(top_t, 7, glyph)
+    fm = np.where(top_t, 12, fm)
+    bits = (fm[..., None] >> np.arange(4)) & 1
+    fg_sum = np.zeros_like(tl)
+    for j in range(4):
+        fg_sum = fg_sum + np.where(bits[..., j, None] == 1, lin[..., j, :],
+                                   F32(0))
+    fn = bits.sum(-1)
+
+    def repack(s, n):
+        v = _div_n(s, n[..., None])
+        rgb = _root(v[..., :3], np.sqrt(v[..., :3].astype(np.float64)))
+        return np.concatenate([rgb, v[..., 3:].astype(np.uint8)], -1)
+
+    fg = repack(fg_sum, fn)
+    bg = np.where((fn == 4)[..., None], fg,
+                  repack(total - fg_sum, np.maximum(4 - fn, 1)))
+    bg = np.where(bot_t[..., None], px[..., 2, :], bg)
+    bg = np.where(top_t[..., None], px[..., 0, :], bg)
+    both = top_t & bot_t
+    glyph = np.where(both, 0, glyph)
+    fg = np.where(both[..., None], px[..., 2, :], fg)
+    return glyph.astype(np.uint8), fg, bg, depth
+
+
 def _emulate_cells(words, use_upper, prev, quarter):
-    """The block kernel's per-thread algorithm in numpy float32 scalars,
-    cell by cell: the pad row and the tail by index, the 8 costs, the
-    serial scan from 1e12 with its early exit, the chosen candidate's
-    colors computed again, the repack, the overrides, the diff."""
-    f32 = np.float32
+    """The block kernel's per-thread algorithm in numpy, over all cells:
+    the pad row and the tail by index, the quarter cells as
+    ``_emulate_quarter``, the half cells' raw pixels, the diff.  Returns
+    (glyph, fg, bg, eq, depth), depth None for half cells."""
     w = words.numpy().view(np.uint8).reshape(words.shape + (4,))
-    p = (prev.numpy().view(np.uint8).reshape(prev.shape + (4,))
-         if prev is not None else None)
     b, th, tw, _ = w.shape
     top = 1 if (th % 2 and not use_upper) else 0
     cw = 2 if quarter else 1
-    h2, wc = (th + 1) // 2, tw // cw
-    glyph = np.zeros((b, h2, wc), np.uint8)
-    fg = np.zeros((b, h2, wc, 4), np.uint8)
-    bg = np.zeros((b, h2, wc, 4), np.uint8)
-    eq = np.zeros((b, h2, wc), bool)
-
-    def px(frame, r, c):
-        r -= top
-        if frame is None or not 0 <= r < th:
-            return np.zeros(4, np.uint8)
-        return frame[r, c]
-
-    def lin(q):
-        v = q.astype(f32)
-        return np.array([v[0] * v[0], v[1] * v[1], v[2] * v[2], v[3]], f32)
-
-    def avg(*vs):
-        acc = vs[0]
-        for v in vs[1:]:
-            acc = acc + v
-        return acc * f32(0.5) if len(vs) == 2 else (
-            acc * f32(0.25) if len(vs) == 4 else acc / f32(3))
-
-    def avd(*vs):
-        m = avg(*vs)
-        tot = f32(0)
-        for k, v in enumerate(vs):
-            d = v[:3] - m[:3]
-            dd = (d[0] * d[0] + d[1] * d[1]) + d[2] * d[2]
-            tot = dd if k == 0 else tot + dd
-        return tot
-
-    def repack(c):
-        rgb = [int(min(np.sqrt(c[k]), f32(255))) for k in range(3)]
-        return np.array(rgb + [int(c[3])], np.uint8)
-
-    for i in range(b):
-        before = w[i - 1] if i else p
-        for r in range(h2):
-            for c in range(wc):
-                cell = [px(w[i], 2 * r + dy, cw * c + dx)
-                        for dy in (0, 1) for dx in range(cw)]
-                prevc = [px(before, 2 * r + dy, cw * c + dx)
-                         for dy in (0, 1) for dx in range(cw)]
-                eq[i, r, c] = all((a == q).all()
-                                  for a, q in zip(cell, prevc))
-                if not quarter:
-                    t, u = cell
-                    is_bg = (t == u).all() or (t[3] < 0x60 and u[3] < 0x60)
-                    glyph[i, r, c] = 0 if is_bg else (8 if use_upper else 7)
-                    fg[i, r, c] = t if (is_bg or use_upper) else u
-                    bg[i, r, c] = u if (is_bg or use_upper) else t
-                    continue
-                tl_u, tr_u, bl_u, br_u = cell
-                tl, tr, bl, br = (lin(q) for q in cell)
-                cost = [avd(tl, tr, bl, br), avd(tr, bl, br),
-                        avd(tl, bl, br), avd(tl, tr, br), avd(tl, tr, bl),
-                        avd(tr, br) + avd(tl, bl), avd(tr, bl) + avd(tl, br),
-                        (avd(bl, br) + avd(tl, tr)) if use_upper
-                        else (avd(tl, tr) + avd(bl, br))]
-                best, k_best = f32(1e12), 0
-                for k in range(8):
-                    if cost[k] < best:
-                        best, k_best = cost[k], k
-                        if cost[k] < 1:
-                            break
-                fgc, bgc = {
-                    0: (avg(tl, tr, bl, br), avg(tl, tr, bl, br)),
-                    1: (tl, avg(tr, bl, br)), 2: (tr, avg(tl, bl, br)),
-                    3: (bl, avg(tl, tr, br)), 4: (br, avg(tl, tr, bl)),
-                    5: (avg(tl, bl), avg(tr, br)),
-                    6: (avg(tl, br), avg(tr, bl)),
-                    7: ((avg(tl, tr), avg(bl, br)) if use_upper
-                        else (avg(bl, br), avg(tl, tr)))}[k_best]
-                g = (8 if use_upper else 7) if k_best == 7 else k_best
-                fq, bq = repack(fgc), repack(bgc)
-                top_t = tl_u[3] < 0x60 and tr_u[3] < 0x60
-                bot_t = bl_u[3] < 0x60 and br_u[3] < 0x60
-                if bot_t:
-                    g, fq, bq = 8, repack(avg(tl, tr)), bl_u
-                if top_t:
-                    g, fq, bq = 7, repack(avg(bl, br)), tl_u
-                if top_t and bot_t:
-                    g, fq, bq = 0, bl_u, tl_u
-                glyph[i, r, c], fg[i, r, c], bg[i, r, c] = g, fq, bq
-    return glyph, fg, bg, eq
+    px = _cell_pixels(w, top, cw)
+    head = (prev.numpy().view(np.uint8).reshape((1,) + prev.shape + (4,))
+            if prev is not None else np.zeros_like(w[:1]))
+    before = _cell_pixels(np.concatenate([head, w[:-1]]), top, cw)
+    eq = (px == before).all(axis=(-1, -2))
+    if quarter:
+        glyph, fg, bg, depth = _emulate_quarter(px, use_upper)
+        return glyph, fg, bg, eq, depth
+    t, u = px[..., 0, :], px[..., 1, :]
+    is_bg = (t == u).all(-1) | ((t[..., 3] < 0x60) & (u[..., 3] < 0x60))
+    glyph = np.where(is_bg, 0, 8 if use_upper else 7).astype(np.uint8)
+    first = (is_bg | use_upper)[..., None]
+    return glyph, np.where(first, t, u), np.where(first, u, t), eq, None
 
 
-@pytest.mark.parametrize("quarter", [True, False])
-@pytest.mark.parametrize("use_upper", [False, True])
-@pytest.mark.parametrize("th,tail", [(8, False), (7, True), (9, False)])
-def test_block_kernel_algorithm_matches_plain(quarter, use_upper, th, tail):
-    """The kernel's per-thread formulation (a serial scan with a break,
-    colors of the chosen candidate only, pad row and tail by index)
-    emulated in numpy float32 equals the plain vectorized version."""
-    words = _block_words(th, 2, th, 10)
-    prev = _block_words(th + 1, 1, th, 10)[0] if tail else None
-    if tail:
-        prev[: th // 2] = words[0, : th // 2]
+def _check_emulation(words, prev, use_upper, quarter):
     cells = (tblocks.quarter_cells_plain if quarter
              else tblocks.half_cells_plain)
     want = cells(words, use_upper, prev)
@@ -936,6 +1074,85 @@ def test_block_kernel_algorithm_matches_plain(quarter, use_upper, th, tail):
     np.testing.assert_array_equal(
         got[2], want[2].numpy().view(np.uint8).reshape(got[2].shape))
     np.testing.assert_array_equal(got[3], want[3].numpy())
+    return got[4]
+
+
+@pytest.mark.parametrize("quarter", [True, False])
+@pytest.mark.parametrize("use_upper", [False, True])
+@pytest.mark.parametrize("th,tail", [(8, False), (7, True), (9, False)])
+def test_block_kernel_algorithm_matches_plain(quarter, use_upper, th, tail):
+    """The kernel's per-thread formulation (exact sums, pair costs, /3
+    and root by their routines, the lazy scan, the chosen candidate's
+    colors from its mask, pad row and tail by index) emulated in numpy
+    float32 equals the plain vectorized version."""
+    words = _block_words(th, 2, th, 10)
+    prev = _block_words(th + 1, 1, th, 10)[0] if tail else None
+    if tail:
+        prev[: th // 2] = words[0, : th // 2]
+    _check_emulation(words, prev, use_upper, quarter)
+
+
+def _window(kind, seed, b, th, tw):
+    """An opaque window of [b, th, tw] words: "flat" one color (every
+    quarter cell stops at candidate 0), "noise" uniform bytes (no cell
+    stops early)."""
+    rng = np.random.default_rng(seed)
+    if kind == "flat":
+        img = np.empty((b, th, tw, 4), np.uint8)
+        img[...] = rng.integers(0, 256, 4, dtype=np.uint8)
+    else:
+        img = rng.integers(0, 256, (b, th, tw, 4), dtype=np.uint8)
+    img[..., 3] = 255
+    return torch.from_numpy(img.view(np.int32)[..., 0].copy())
+
+
+@pytest.mark.parametrize("quarter", [True, False])
+@pytest.mark.parametrize("kind", ["flat", "noise"])
+def test_block_kernel_algorithm_on_flat_and_noise(kind, quarter):
+    """The emulation on a flat and a noise window (odd height, with a
+    tail): equal to the plain version, and the lazy scan computes one
+    candidate a flat cell and all 8 a noise cell."""
+    words = _window(kind, 3, 2, 15, 24)
+    prev = _window(kind, 4, 1, 15, 24)[0]
+    depth = _check_emulation(words, prev, False, quarter)
+    if quarter:   # the odd height's blank top row overrides its cells
+        assert (depth[:, 0] == 0).all()
+        assert (depth[:, 1:] == (1 if kind == "flat" else 8)).all()
+
+
+@pytest.mark.parametrize("diff", [True, False])
+def test_cell_outputs_share_one_buffer(diff):
+    """The kernel's outputs are views of one buffer with the plain
+    version's shapes and dtypes, fg and bg 4-byte aligned; cells_to_host
+    fetches them with one copy into what a fetch of each gives."""
+    shape = (3, 5, 7)
+    glyph, fg, bg, eq = blocks_kernel.cell_outputs(shape, diff,
+                                                   torch.device("cpu"))
+    parts = [glyph, fg, bg] + ([eq] if diff else [])
+    assert [t.dtype for t in parts] == [torch.uint8, torch.int32,
+                                        torch.int32, torch.bool][:len(parts)]
+    assert all(t.shape == shape and t.is_contiguous() for t in parts)
+    assert (eq is None) == (not diff)
+    assert fg.data_ptr() % 4 == 0 and bg.data_ptr() % 4 == 0
+    storage = glyph.untyped_storage()
+    assert storage.nbytes() == (1052 if diff else 948)
+    assert all(t.untyped_storage().data_ptr() == storage.data_ptr()
+               for t in parts)
+    rng = np.random.default_rng(5)
+    for t in parts:
+        t.view(torch.uint8).copy_(torch.from_numpy(rng.integers(
+            0, 2 if t.dtype == torch.bool else 256,
+            t.view(torch.uint8).shape, dtype=np.uint8)))
+    got = tblocks.cells_to_host((glyph, fg, bg, eq))
+    want = (glyph.numpy(), fg.numpy().view(np.uint8).reshape(shape + (4,)),
+            bg.numpy().view(np.uint8).reshape(shape + (4,)),
+            eq.numpy() if diff else None)
+    for g, w in zip(got, want):
+        if w is None:
+            assert g is None
+        else:
+            assert g.dtype == w.dtype
+            np.testing.assert_array_equal(g, w)
 
 
 @pytest.mark.cuda
@@ -1007,3 +1224,66 @@ def test_plain_block_average_divides_exactly_on_the_card(cuda_device):
         avg, _ = tblocks._avd(v.to(dev), zero.to(dev), zero.to(dev))
         np.testing.assert_array_equal(avg[:, 0].cpu().numpy(),
                                       s / np.float32(3))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["flat", "noise"])
+@pytest.mark.parametrize("th,tw", [(40, 64), (719, 1280), (21, 30)])
+@pytest.mark.parametrize("quarter", [True, False])
+def test_block_kernel_matches_plain_on_flat_and_noise(cuda_device, kind, th,
+                                                      tw, quarter):
+    """The kernels on a flat window (every quarter scan stops at its
+    first candidate) and a noise window (none stops early), with a tail,
+    byte-equal to the plain versions."""
+    words = _window(kind, th, 3, th, tw)
+    prev = _window(kind, tw, 1, th, tw)[0]
+    kern = (blocks_kernel.quarter_cells_cuda if quarter
+            else blocks_kernel.half_cells_cuda)
+    plain = (tblocks.quarter_cells_plain if quarter
+             else tblocks.half_cells_plain)
+    got = kern(words.to(cuda_device), False, prev.to(cuda_device))
+    torch.cuda.synchronize()
+    for g, w in zip(got, plain(words, False, prev)):
+        assert g.dtype == w.dtype and torch.equal(g.cpu(), w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 2])
+def test_quarter_kernel_pairs_and_single_cells_agree(cuda_device, offset):
+    """Words whose rows allow 16-byte loads take two cells a thread; the
+    same words 8 bytes off that alignment take one.  Both equal the plain
+    version."""
+    words = _block_words(11, 3, 13, 24)
+    flat = torch.zeros(words.numel() + 4, dtype=torch.int32,
+                       device=cuda_device)
+    flat[offset:offset + words.numel()] = words.reshape(-1).to(cuda_device)
+    view = flat[offset:offset + words.numel()].view(words.shape)
+    assert view.data_ptr() % 16 == (0 if offset == 0 else 8)
+    got = blocks_kernel.quarter_cells_cuda(view, True, view[-1].clone())
+    want = tblocks.quarter_cells_plain(words, True, words[-1].clone())
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quarter", [True, False])
+def test_block_kernel_outputs_are_views_of_one_buffer(cuda_device, quarter):
+    """On the card the four outputs are views of one buffer with the
+    plain version's shapes and dtypes (fg and bg 4-byte aligned), and
+    cells_to_host fetches them with one copy into the plain version's
+    planes."""
+    words = _block_words(12, 2, 9, 20)
+    kern = (blocks_kernel.quarter_cells_cuda if quarter
+            else blocks_kernel.half_cells_cuda)
+    plain = (tblocks.quarter_cells_plain if quarter
+             else tblocks.half_cells_plain)
+    got = kern(words.to(cuda_device))
+    want = plain(words)
+    storage = got[0].untyped_storage().data_ptr()
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype
+        assert g.untyped_storage().data_ptr() == storage
+    assert got[1].data_ptr() % 4 == 0 and got[2].data_ptr() % 4 == 0
+    for g, w in zip(tblocks.cells_to_host(got), tblocks.cells_to_host(want)):
+        assert g.dtype == w.dtype
+        np.testing.assert_array_equal(g, w)

@@ -5,9 +5,11 @@ and ``half_blocks`` with timg_tpu/ops/diff.py ``window_cell_diff`` (XLA
 in the reference, one fused pass; no Pallas kernel): one launch a window,
 one thread a cell, reading the resized [B, th, tw] int32 RGBA words with
 the odd-height blank row and the previous window's tail supplied by
-indexing.  Its bound on the H100 is device-memory bytes (16 B in and 10 B
-out a quarter cell); quarter cells run issue-bound by their correctly
-rounded divisions and roots.  The plain versions are
+indexing.  Half cells are bound by device-memory bytes (8 B in and 10 B
+out a cell), quarter cells by instruction issue (a few hundred float
+operations a cell, none contracted).  A call allocates one byte buffer
+for its four outputs, handed out as views, so the host fetches a window
+with one copy (``ops/blocks.cells_to_host``).  The plain versions are
 ``ops/blocks.quarter_cells_plain`` and ``half_cells_plain``.
 """
 
@@ -38,6 +40,13 @@ def _lib():
     return _bound
 
 
+def _stream(index: int) -> int:
+    """The handle of the device's current stream, as torch's own compiled
+    kernels read it: ``torch.cuda.current_stream()`` builds a Stream
+    object, 6 us a call on the card's host."""
+    return torch._C._cuda_getCurrentRawStream(index)
+
+
 def _cells_cuda(entry: str, counter: str, cell_w: int, words: torch.Tensor,
                 use_upper: bool, prev: Optional[torch.Tensor], diff: bool):
     if not (words.is_cuda and words.dtype == torch.int32
@@ -59,21 +68,36 @@ def _cells_cuda(entry: str, counter: str, cell_w: int, words: torch.Tensor,
         prev = prev.contiguous()
         if prev.data_ptr() % 8:
             prev = prev.clone()
-    shape = (b, (th + 1) // 2, tw // cell_w)
-    dev = words.device
-    glyph = torch.empty(shape, dtype=torch.uint8, device=dev)
-    fg = torch.empty(shape, dtype=torch.int32, device=dev)
-    bg = torch.empty(shape, dtype=torch.int32, device=dev)
-    eq = torch.empty(shape, dtype=torch.bool, device=dev) if diff else None
+    glyph, fg, bg, eq = cell_outputs((b, (th + 1) // 2, tw // cell_w), diff,
+                                     words.device)
     if glyph.numel() == 0:
         return glyph, fg, bg, eq
-    ptr = lambda t: ctypes.c_void_p(t.data_ptr() if t is not None else None)
     _build.check(getattr(_lib(), entry)(
-        ptr(words), ptr(prev), b, th, tw, int(bool(use_upper)), ptr(glyph),
-        ptr(fg), ptr(bg), ptr(eq),
-        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)), entry)
+        words.data_ptr(), prev.data_ptr() if prev is not None else None, b,
+        th, tw, int(bool(use_upper)), glyph.data_ptr(), fg.data_ptr(),
+        bg.data_ptr(), eq.data_ptr() if diff else None,
+        _stream(words.device.index)), entry)
     globals()[counter] += 1
     return glyph, fg, bg, eq
+
+
+def cell_outputs(shape, diff: bool, device):
+    """The outputs of one call as views of one uint8 buffer: fg and bg
+    (int32 words, first, so 4-byte aligned), then glyph (uint8) and eq
+    (bool, or None without the diff), each of ``shape``.  Each view is
+    one as_strided of the buffer: on the card's host every tensor op
+    costs microseconds, as much as the kernel at the CLI's geometry."""
+    b, h, w = shape
+    n = b * h * w
+    stride = (h * w, w, 1)
+    buf = torch.empty(-(-n * (10 if diff else 9) // 4) * 4, dtype=torch.uint8,
+                      device=device)
+    words = buf.view(torch.int32)
+    return (buf.as_strided(shape, stride, 8 * n),
+            words.as_strided(shape, stride, 0),
+            words.as_strided(shape, stride, n),
+            buf.view(torch.bool).as_strided(shape, stride, 9 * n)
+            if diff else None)
 
 
 def quarter_cells_cuda(words: torch.Tensor, use_upper: bool = False,

@@ -226,7 +226,7 @@ def prime_block_video_device(ys, us, vs, th: int, tw: int,
     (``-p quarter`` / ``-p half``; timg_tpu/render/plane_cache.py:
     prime_block_video_device): convert + resize, then the block cells
     and the window diff of every frame on the device, fetching only the
-    glyph, fg, bg and eq planes.  The previous window's last frame rides
+    glyph, fg, bg and eq planes, in one copy.  The previous window's last frame rides
     along in ``state`` so the window-boundary diff is the device's too.
 
     Returns B DeviceFrame placeholders and parks each frame's planes in
@@ -247,12 +247,10 @@ def prime_block_video_device(ys, us, vs, th: int, tw: int,
     words = stage_window(state, ys, us, vs, th, tw, full_range, th, 0)
     tail = state.get("block_tail")
     cells = blocks_op.quarter_cells if quarter else blocks_op.half_cells
-    glyph_d, fg_d, bg_d, eq_d = cells(words, use_upper,
-                                      tail[0] if tail else None)
-    glyph = glyph_d.cpu().numpy()
-    fg = fg_d.cpu().numpy().view(np.uint8).reshape(fg_d.shape + (4,))
-    bg = bg_d.cpu().numpy().view(np.uint8).reshape(bg_d.shape + (4,))
-    eq = eq_d.cpu().numpy()     # eq[i]: frame i vs frame i-1 or the tail
+    # one fetch of the window's cells; eq[i]: frame i vs frame i-1 or the
+    # tail
+    glyph, fg, bg, eq = blocks_op.cells_to_host(
+        cells(words, use_upper, tail[0] if tail else None))
 
     frames = [DeviceFrame(words, i, th, tw) for i in range(b)]
     # One object per padded frame, shared between frame i's "padded" slot
