@@ -1124,7 +1124,7 @@ def test_block_kernel_algorithm_on_flat_and_noise(kind, quarter):
 def test_cell_outputs_share_one_buffer(diff):
     """The kernel's outputs are views of one buffer with the plain
     version's shapes and dtypes, fg and bg 4-byte aligned; cells_to_host
-    fetches them with one copy into what a fetch of each gives."""
+    gives what a fetch of each gives."""
     shape = (3, 5, 7)
     glyph, fg, bg, eq = blocks_kernel.cell_outputs(shape, diff,
                                                    torch.device("cpu"))
@@ -1248,12 +1248,14 @@ def test_block_kernel_matches_plain_on_flat_and_noise(cuda_device, kind, th,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("tw", [24, 26])
 @pytest.mark.parametrize("offset", [0, 2])
-def test_quarter_kernel_pairs_and_single_cells_agree(cuda_device, offset):
-    """Words whose rows allow 16-byte loads take two cells a thread; the
-    same words 8 bytes off that alignment take one.  Both equal the plain
-    version."""
-    words = _block_words(11, 3, 13, 24)
+def test_quarter_kernel_pairs_and_single_cells_agree(cuda_device, offset,
+                                                     tw):
+    """A thread takes two adjacent cells, and a row of an odd number of
+    cells (tw % 4 == 2) ends in a lone one, on words 16-byte aligned or
+    8 bytes off it.  Both equal the plain version."""
+    words = _block_words(11, 3, 13, tw)
     flat = torch.zeros(words.numel() + 4, dtype=torch.int32,
                        device=cuda_device)
     flat[offset:offset + words.numel()] = words.reshape(-1).to(cuda_device)

@@ -11,10 +11,15 @@ ties and the ``d < 1`` early exit come out as the reference's.
 A CUDA tensor goes through the hand-written kernel (ops/blocks_kernel.py,
 csrc/block_cells.cu), a CPU tensor through the plain PyTorch version
 below, which follows timg_tpu/ops/blocks.py op for op.  The JAX package
-emulates a correctly rounded ``/3`` and the truncated root (its
-ops/exact.py) because the TPU's are approximate; torch's ``/`` rounds
-correctly, so it serves as it is, and the root is exact.py's
-``floor_sqrt_255`` (``_floor_sqrt_255``).  Each product and sum is its
+emulates a correctly rounded ``/3`` and ``sqrt`` (its ops/exact.py)
+because the TPU's are approximate; torch's ``/`` rounds correctly on the
+CPU, so it serves as it is, and so does the truncated ``torch.sqrt``,
+although a vectorized CPU path can leave a root one ulp off the
+correctly rounded one: the values the repack is fed sit far enough from
+every square but the square itself
+(test_plain_repack_root_is_exact_on_the_repack_lattice).  A CPU run
+that now and then gives one cell's fg channel one lower than the card
+is not explained yet (ROADMAP, faults).  Each product and sum is its
 own eager op, so none is contracted into an FMA.
 
 Two interfaces:
@@ -87,30 +92,10 @@ def _avd(*values: torch.Tensor):
     return avg, total
 
 
-def _floor_sqrt_255(v: torch.Tensor) -> torch.Tensor:
-    """floor(sqrt(v)) clamped to [0, 255], op for op as
-    timg_tpu/ops/exact.py:floor_sqrt_255: the root truncated, then
-    corrected by exact integer compares.  On every value the repack is
-    fed it equals the reference's (uint8)min(sqrtf(v), 255) (exact.py's
-    lattice argument).  The root truncated alone does not serve: on the
-    card's host, CPU runs of a block window now and then gave one exact
-    square's root as n - 1 (which op misrounded is not known; torch.sqrt
-    alone on exact squares did not), and the corrections repair any root
-    off by one."""
-    t = torch.clamp(torch.floor(torch.sqrt(v)), 0.0, 255.0)
-    for _ in range(2):
-        t = torch.clamp(torch.where(t * t > v, t - 1.0, t), min=0.0)
-    for _ in range(2):
-        up = t + 1.0
-        t = torch.where((up <= 255.0) & (up * up <= v), up, t)
-    return t
-
-
 def _repack(lin: torch.Tensor) -> torch.Tensor:
-    """LinearColor::repack: the root truncated and clamped to 255
-    (``_floor_sqrt_255``); alpha truncated (a 3-pixel alpha average is
-    not an integer)."""
-    rgb = _floor_sqrt_255(lin[..., :3])
+    """LinearColor::repack: sqrtf truncated and clamped to 255; alpha
+    truncated (a 3-pixel alpha average is not an integer)."""
+    rgb = torch.clamp(torch.sqrt(lin[..., :3]), max=255.0)
     return torch.cat([rgb, lin[..., 3:4]], dim=-1).to(torch.uint8)
 
 
@@ -301,34 +286,16 @@ def half_cells(words: torch.Tensor, use_upper: bool = False,
 
 def cells_to_host(cells):
     """(glyph, fg, bg, eq) of ``quarter_cells`` / ``half_cells`` -> numpy
-    (glyph uint8, fg and bg [..., 4] uint8, eq bool or None).  The
-    kernel's outputs are views of one buffer, fetched with one copy; the
-    plain version's are fetched one by one."""
-    glyph, fg, bg, eq = cells
-    parts = [t for t in cells if t is not None]
-    storage = glyph.untyped_storage()
-    if all(t.untyped_storage().data_ptr() == storage.data_ptr()
-           and t.is_contiguous() for t in parts):
-        whole = torch.empty(0, dtype=torch.uint8, device=glyph.device)
-        whole.set_(storage, 0, (storage.nbytes(),))
-        host = whole.cpu().numpy()
-
-        def fetch(t):
-            at = t.storage_offset() * t.element_size()
-            raw = host[at:at + t.numel() * t.element_size()]
-            return raw.view(_NUMPY[t.dtype]).reshape(t.shape)
-    else:
-        def fetch(t):
-            return t.cpu().numpy()
-
-    def rgba(t):
-        return fetch(t).view(np.uint8).reshape(t.shape + (4,))
-
-    return (fetch(glyph), rgba(fg), rgba(bg),
-            fetch(eq) if eq is not None else None)
-
-
-_NUMPY = {torch.uint8: np.uint8, torch.int32: np.int32, torch.bool: np.bool_}
+    (glyph uint8, fg and bg [..., 4] uint8, eq bool or None).  On the
+    card the outputs are views of one uint8 buffer (blocks_kernel.
+    cell_outputs), fetched with one copy and viewed again on the host."""
+    if cells[0].is_cuda:
+        host = cells[0]._base.cpu()
+        cells = [t if t is None else host.view(t.dtype).as_strided(
+            t.shape, t.stride(), t.storage_offset()) for t in cells]
+    glyph, fg, bg, eq = (t if t is None else t.numpy() for t in cells)
+    return (glyph, fg.view(np.uint8).reshape(fg.shape + (4,)),
+            bg.view(np.uint8).reshape(bg.shape + (4,)), eq)
 
 
 def _blocks(cells_fn, frames: torch.Tensor, use_upper: bool):

@@ -226,8 +226,9 @@ def prime_block_video_device(ys, us, vs, th: int, tw: int,
     (``-p quarter`` / ``-p half``; timg_tpu/render/plane_cache.py:
     prime_block_video_device): convert + resize, then the block cells
     and the window diff of every frame on the device, fetching only the
-    glyph, fg, bg and eq planes, in one copy.  The previous window's last frame rides
-    along in ``state`` so the window-boundary diff is the device's too.
+    glyph, fg, bg and eq planes, in one copy.  The previous window's
+    last frame rides along in ``state`` so the window-boundary diff is
+    the device's too.
 
     Returns B DeviceFrame placeholders and parks each frame's planes in
     BLOCK_PLANES, or None for odd-width quarter frames, which the canvas
