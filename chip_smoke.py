@@ -30,7 +30,13 @@ only the port (timg_tpu_torch), never jax or the JAX package.  Phases:
    ways, and at the CLI's block geometry (1080p into -g160x48, B=8);
    quarter cells also on a seeded noise and a flat window of 720x1280
    words, B=32, each timed beside the bound of the operations its
-   scan needs.
+   scan needs; the four transport kernels (run counts a band, the run
+   compaction, the DCS band lengths and the DCS emission) on the cube
+   dither's 720x1280 index planes at B=32 and B=8, the compaction beside
+   torch.masked_select and also on flat planes it does not truncate;
+   then, per transport (plane, runs, DCS forced, and the default auto),
+   the device->host and host legs of an 8-frame window of flat,
+   film-like and noise index planes, whose streams must be equal.
    The wavefront driver is
    also checked and timed at the batches the main paths launch besides 32:
    K6, K7 and K8 at the CLI's 8-frame window, K9 and the byte tree at one
@@ -55,8 +61,13 @@ only the port (timg_tpu_torch), never jax or the JAX package.  Phases:
    so the second window's first frame diffs against the first's tail;
    each block mode then runs again, split into its legs a window
    (planes, H2D, convert and resize, cells, the one fetch, emit), and
-   must write the same stream.  Each mode's stream must equal the same
-   windows run with TIMG_TPU_TORCH_DEVICE=cpu in a subprocess;
+   must write the same stream.  Each sixel mode (whose default
+   transport, auto, counts the runs first) then runs one 8-frame window
+   of flat frames (black, a moving white block, a narrow grey ramp)
+   under TIMG_TPU_SIXEL_TRANSPORT=plane, runs and dcs: each transport
+   must carry all 8 frames (STATS) through its kernels and write the
+   plane's stream.  Each mode's stream must equal the same windows run
+   with TIMG_TPU_TORCH_DEVICE=cpu in a subprocess;
 4. library path: timg_tpu_torch.models.get("sixel") at 720x1280 on 8
    seeded 1080p RGBA frames with a transparent region (bg opaque black),
    in cube, adaptive (a tree per frame) and adaptive with
@@ -113,6 +124,25 @@ LIB_RUNS = {"cube": ("cube", False, "rgba"),
             "half": (None, False, "rgba")}
 # the block models' output pixels (the library's -g160x48 canvas)
 LIB_BLOCK_SIZE = {"quarter": (96, 320), "half": (96, 160)}
+# the sixel modes run again on flat windows in each forced transport
+SIXEL_MODES = ("cube", "libsixel", "adaptive")
+TRANSPORTS = ("plane", "runs", "dcs")
+N_FLAT = 8              # frames of a transport run (one CLI window)
+# kernels a transport launches, beyond its mode's (the default, auto,
+# always counts the runs first)
+TRANSPORT_KERNELS = {"plane": (), "runs": ("run_counts", "compact_runs"),
+                     "dcs": ("dcs_lens", "dcs_emit"),
+                     "auto": ("run_counts",)}
+# integer operations the transport functions need (not what the kernels
+# of csrc/sixel_runs.cu and csrc/sixel_dcs.cu spend): a band's column
+# words and their compare with the column before, 12 a column; for the
+# DCS, a pixel's presence bit and its colour's mask bit (2 a pixel, one
+# scatter builds every colour's mask row), then for each listed colour
+# and column the start compare and the byte count (3); one store a body
+# byte
+RUN_OPS_PER_COLUMN = 12
+DCS_OPS_PER_PX = 2
+DCS_OPS_PER_COLOUR_COLUMN = 3
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 # float32 instructions outside the tensor cores: 128 lanes an SM x 132
 # SMs x 1.98 GHz (the data sheet's 67 TFLOP/s counts an FMA as two
@@ -176,6 +206,23 @@ def yuv_frames(n: int, seed: int):
     return ys, us, vs
 
 
+def flat_yuv_frames(n: int):
+    """4:2:0 planes that every transport carries: black (Y 16) with a
+    white (Y 235) block moving 40 pixels a frame and a grey ramp (Y 100
+    to 140) across a strip of 108 rows, neutral chroma.  Black and white
+    are palette colours in every dither mode and the ramp holds few
+    greys, so a band holds few colours (DCS) and few column runs (runs)."""
+    import numpy as np
+
+    ys = np.full((n, IN_H, IN_W), 16, np.uint8)
+    ramp = (100 + np.arange(IN_W) * 40 // (IN_W - 1)).astype(np.uint8)
+    for i in range(n):
+        ys[i, 540:648] = ramp
+        ys[i, 120:420, 200 + 40 * i:800 + 40 * i] = 235
+    us = np.full((n, IN_H // 2, IN_W // 2), 128, np.uint8)
+    return ys, us, us.copy()
+
+
 def block_options(mode: str):
     """The CLI's display options for ``-g160x48 -p quarter|half``."""
     from timg_tpu_torch.options import DisplayOptions
@@ -231,8 +278,10 @@ def timed_block_legs(legs: dict):
             setattr(owner, attr, fn)
 
 
-def main_path_stream(mode: str, n: int, legs: list = None) -> bytes:
-    """n frames of 1080p through the port's video window, in 8-frame
+def main_path_stream(mode: str, n: int, legs: list = None,
+                     content: str = "seeded") -> bytes:
+    """n frames of 1080p (``yuv_frames``, or ``flat_yuv_frames`` with
+    content "flat") through the port's video window, in 8-frame
     windows, dithered in ``mode`` into the port's SixelCanvas, or in
     quarter or half blocks into its UnicodeBlockCanvas; returns the
     written stream.  Given a list ``legs`` in a block mode, appends each
@@ -265,7 +314,8 @@ def main_path_stream(mode: str, n: int, legs: list = None) -> bytes:
     src._target = (tw, th)
     src._full_range = False
     t0 = time.perf_counter()
-    ys, us, vs = yuv_frames(n, SEED + 1)
+    ys, us, vs = (yuv_frames(n, SEED + 1) if content == "seeded"
+                  else flat_yuv_frames(n))
     planes_s = (time.perf_counter() - t0) * _WINDOW / n
     timing = legs is not None and mode in BLOCK_MODES
 
@@ -977,6 +1027,8 @@ def kernel_phase(dev):
               f"{plan.warps} warps): equal to plain; {ms:.6f} ms, "
               f"{ms * 1000 / steps(h):.6f} us a step")
 
+    results.update(transport_phase(w720))
+
     rows = {"dither": OUT_H, "cube_rgb": OUT_H, "tree": OUT_H + 6,
             "table": OUT_H + 6, "tree_rgb": OUT_H}
     for name, r in results.items():
@@ -990,6 +1042,237 @@ def kernel_phase(dev):
               f"{N_WINDOW if name == 'resize_passes' else N_KERNEL}-frame "
               "window")
     return results
+
+
+def transport_phase(w720) -> dict:
+    """The four transport kernels on the cube dither's index planes of
+    the seeded window (720x1280, as the main path dithers them): each
+    byte-equal to its plain version (on the card) at B=32 and at the
+    CLI's B=8, timed at both beside its bound (bytes, or the integer
+    operations the function needs for this data: the listed colours of
+    each band) and, for the compaction, torch.masked_select of the
+    packed column words by the start mask.  Every seeded frame holds
+    more runs than the cap, so the compaction is also checked and timed
+    on flat windows (``flat_planes``), which the main path does compact;
+    its row in the kernels line is the flat window's.  The compaction is
+    timed alone, given the counts."""
+    from timg_tpu_torch.ops import sixel_dcs, sixel_kernel, sixel_runs
+    from timg_tpu_torch.ops import sixel_runs_kernel as srk
+
+    h, w = OUT_H, OUT_W
+    nb = (h + 5) // 6
+    planes = sixel_kernel.fs_dither_cube_cuda(w720, h, w)       # uint8
+    results = {}
+    for b in (N_KERNEL, N_WINDOW):
+        p = planes[:b]
+        px = b * h * w
+        counts = sixel_runs.band_run_counts(p, h, w)
+        err = check_equal(f"band_run_counts at B={b}", counts,
+                          sixel_runs.band_run_counts_plain(p, h, w))
+        seeded = compaction(p, f"the seeded window at B={b}")
+        flat = compaction(flat_planes(b, p.device),
+                          f"a flat window at B={b}")
+        lens, colours = sixel_dcs.batch_band_lens(p, b, h, w)
+        want = sixel_dcs.batch_band_lens_plain(p, b, h, w)
+        err = max(err, check_equal(f"dcs_band_lens at B={b}", lens,
+                                   want[0]),
+                  check_equal(f"dcs_band_lens' colours at B={b}", colours,
+                              want[1]))
+        dcap = sixel_dcs.bucket_cap(int(lens.max()))
+        bands, lens2 = sixel_dcs.batch_encode(p, b, h, w, dcap)
+        want = sixel_dcs.batch_encode_plain(p, b, h, w, dcap)
+        err = max(err, check_equal(f"dcs_emit at B={b}", bands, want[0]),
+                  check_equal(f"dcs_emit's lens at B={b}", lens2, want[1]))
+        n_runs = int(counts.sum())
+        listed = int(colours.clamp(max=sixel_dcs.COLOR_CAP).sum())
+        body = int(lens.sum())
+        dcs_ops = (px * DCS_OPS_PER_PX
+                   + listed * w * DCS_OPS_PER_COLOUR_COLUMN)
+        row = {
+            "run_counts": dict(
+                max_abs_err=err,
+                ms=cuda_ms(lambda: srk.band_run_counts_cuda(p, h, w), 50),
+                plain_ms=cuda_ms(lambda: sixel_runs.band_run_counts_plain(
+                    p, h, w), 3),
+                library_ms=None,
+                **bound(px + b * nb * 4, b * nb * w * RUN_OPS_PER_COLUMN,
+                        INT32_OPS_PER_S)),
+            "compact_runs": dict(flat, max_abs_err=max(
+                err, flat["max_abs_err"], seeded["max_abs_err"])),
+            "dcs_lens": dict(
+                max_abs_err=err,
+                ms=cuda_ms(lambda: sixel_dcs.batch_band_lens(p, b, h, w),
+                           20),
+                plain_ms=cuda_ms(lambda: sixel_dcs.batch_band_lens_plain(
+                    p, b, h, w), 1),
+                library_ms=None,
+                **bound(px + b * nb * 8, dcs_ops, INT32_OPS_PER_S)),
+            # its output, written once: the band buffers [B, nb, cap],
+            # zero past each band's length, and the lens
+            "dcs_emit": dict(
+                max_abs_err=err,
+                ms=cuda_ms(lambda: sixel_dcs.batch_encode(
+                    p, b, h, w, dcap), 20),
+                plain_ms=cuda_ms(lambda: sixel_dcs.batch_encode_plain(
+                    p, b, h, w, dcap), 1),
+                library_ms=None,
+                **bound(px + b * nb * (dcap + 4), dcs_ops + body,
+                        INT32_OPS_PER_S))}
+        seeded_data = (f"cube indices of the seeded window: {n_runs} runs, "
+                       f"{listed} listed colours, {body} body bytes, DCS "
+                       f"cap {dcap}")
+        for name, r, data in (
+                ("run_counts", row["run_counts"], seeded_data),
+                ("compact_runs", flat, f"a flat window: {flat['runs']} runs"),
+                ("compact_runs", seeded,
+                 f"{seeded_data}; every frame over the cap, truncated"),
+                ("dcs_lens", row["dcs_lens"], seeded_data),
+                ("dcs_emit", row["dcs_emit"], seeded_data)):
+            lib_ms = r["library_ms"]
+            print(f"kernels: {name} B={b} {h}x{w} ({data}): equal to plain; "
+                  f"{r['ms']:.6f} ms, plain {r['plain_ms']:.6f} ms, bound "
+                  f"{r['bound_ms']:.6f} ms ({r['bound_by']}), library "
+                  f"{'none' if lib_ms is None else f'{lib_ms:.6f} ms'}")
+        if b == N_KERNEL:
+            results = row
+    for r in results.values():
+        r.pop("runs", None)
+    return results
+
+
+def compaction(p, what: str) -> dict:
+    """The compaction kernel on [B, 720, 1280] u8 planes: byte-equal to
+    its plain version and to torch.masked_select of the packed column
+    words by the start mask (each frame's records up to the cap), timed
+    alone given the counts beside its bound: the planes and the counts
+    read, the records [B, cap, 2] (zero past a frame's count) written."""
+    import torch
+
+    from timg_tpu_torch.ops import sixel_runs
+    from timg_tpu_torch.ops import sixel_runs_kernel as srk
+
+    h, w = OUT_H, OUT_W
+    b, nb = p.shape[0], (h + 5) // 6
+    cap = sixel_runs.default_cap(h, w)
+    counts = sixel_runs.band_run_counts(p, h, w)
+    records, got_counts = sixel_runs.compact_runs(p, h, w, cap)
+    want = sixel_runs.compact_runs_plain(p, h, w, cap)
+    err = max(check_equal(f"compact_runs on {what}", records, want[0]),
+              check_equal(f"compact_runs' counts on {what}", got_counts,
+                          want[1]))
+    # the yardstick: packed words, start mask made outside the timing
+    w0, w1 = sixel_runs._column_words(p, h, w)
+    start = sixel_runs._start_mask(w0, w1)
+    xs = torch.arange(w, dtype=torch.int32, device=p.device)
+    packed = torch.stack([w0, w1 | (xs << 16)], dim=-1)
+    mask = start[..., None].expand_as(packed)
+    picked = torch.masked_select(packed, mask).view(-1, 2)
+    first = 0
+    for i, c in enumerate(counts.sum(1).tolist()):
+        kept = min(c, records.shape[1])    # the records stop at cap
+        if not torch.equal(picked[first:first + kept], records[i, :kept]):
+            fail(f"masked_select of the packed words != the records of "
+                 f"frame {i} on {what}")
+        first += c
+    return dict(
+        runs=int(counts.sum()), max_abs_err=err,
+        ms=cuda_ms(lambda: srk.compact_records_cuda(p, h, w, counts, cap),
+                   50),
+        plain_ms=cuda_ms(lambda: sixel_runs.compact_runs_plain(
+            p, h, w, cap), 3),
+        library_ms=cuda_ms(lambda: torch.masked_select(packed, mask), 20),
+        **bound(b * h * w + b * nb * 4 + records.numel() * 4,
+                b * nb * w * RUN_OPS_PER_COLUMN, INT32_OPS_PER_S))
+
+
+def flat_planes(b: int, dev):
+    """b frames of 720x1280 index planes of UI-like content: a black
+    field, a moving rectangle, a box of one index a frame and a bar."""
+    import torch
+
+    flat = torch.zeros((b, OUT_H, OUT_W), dtype=torch.uint8, device=dev)
+    for i in range(b):
+        flat[i, 40:300, 100 + 20 * (i % 8):700 + 20 * (i % 8)] = 17
+        flat[i, 400:680, 300:1200] = 40 + i % 8
+        flat[i, 500:520, :] = 3
+    return flat
+
+
+def transport_legs(dev) -> None:
+    """Per window (the CLI's 8 frames of 720x1280 index planes) and per
+    forced transport, the host clock of the device->host leg (the
+    transport's kernels, its host syncs and copies: fetch_planes_or_runs)
+    and of the host leg (C assembly of planes or records, or the DCS
+    splice), on a flat window (UI-like rectangles), a film-like gradient
+    (the cube dither of smooth gradients) and a noise window (the cube
+    dither of noise); then the same under the default, auto, from a
+    fresh session's verdict (``_DCS_FASTER`` unset): what auto ships and
+    what its decision costs where it falls back to the plane.  The
+    transports' streams must be equal."""
+    import torch
+
+    from timg_tpu_torch.ops import sixel_kernel, sixel_runs
+    from timg_tpu_torch.ops.sixel_np import cube_palette
+    from timg_tpu_torch.render import sixel_render
+
+    h, w, b = OUT_H, OUT_W, N_WINDOW
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    flat = flat_planes(b, dev)
+    yy = torch.arange(h, device=dev)[:, None]
+    xx = torch.arange(w, device=dev)[None, :]
+    words = torch.stack([
+        (xx * 255 // (w - 1) + 3 * i).clamp(max=255)
+        | ((yy * 255 // (h - 1)) << 8)
+        | (((xx + yy + 5 * i) * 255 // (w + h)).clamp(max=255) << 16)
+        for i in range(b)]).to(torch.int32) | BG_WORD
+    film = sixel_kernel.fs_dither_cube_cuda(words, h, w)
+    noise_words = torch.randint(0, 1 << 24, (b, h, w), generator=gen,
+                                device=dev, dtype=torch.int32) | BG_WORD
+    noise = sixel_kernel.fs_dither_cube_cuda(noise_words, h, w)
+    pal = cube_palette()
+    encoders = {"ndarray": sixel_render.encode_sixel_stream,
+                "SixelRuns": sixel_render.encode_sixel_stream_runs,
+                "SixelDcs": sixel_render.encode_sixel_stream_dcs}
+    verdict = sixel_runs._DCS_FASTER
+    try:
+        for name, planes in (("flat", flat), ("film-like", film),
+                             ("noise", noise)):
+            streams = {}
+            for transport in TRANSPORTS + ("auto",):
+                os.environ["TIMG_TPU_SIXEL_TRANSPORT"] = transport
+                sixel_runs._DCS_FASTER = None
+                d2h, host = [], []
+                for rep in range(4):               # the first warms up
+                    s0 = dict(sixel_runs.STATS)
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    entries = sixel_runs.fetch_planes_or_runs(planes, b, h,
+                                                              w)
+                    t1 = time.perf_counter()
+                    out = [encoders[type(e).__name__](e, pal)
+                           for e in entries]
+                    t2 = time.perf_counter()
+                    if rep:
+                        d2h.append((t1 - t0) * 1e3)
+                        host.append((t2 - t1) * 1e3)
+                moved = {k: sixel_runs.STATS[k] - s0[k] for k in s0}
+                streams[transport] = out
+                kind = type(entries[0]).__name__.replace("ndarray", "planes")
+                print(f"transport legs: {name} window, B={b} {h}x{w}, "
+                      f"{transport}: shipped as {kind}, "
+                      f"{moved['bytes_shipped']} B ({h * w * b} B of "
+                      f"planes); device and D2H {min(d2h):.3f}-"
+                      f"{max(d2h):.3f} ms, host {min(host):.3f}-"
+                      f"{max(host):.3f} ms a window (host clock, "
+                      f"{len(d2h)} runs)" + (
+                          f"; DCS verdict {sixel_runs._DCS_FASTER}"
+                          if transport == "auto" else ""))
+            if any(streams[t] != streams["plane"] for t in streams):
+                fail(f"transport legs: the {name} window's streams differ "
+                     "between transports")
+    finally:
+        os.environ.pop("TIMG_TPU_SIXEL_TRANSPORT", None)
+        sixel_runs._DCS_FASTER = verdict
 
 
 def bucket_times(pals) -> dict:
@@ -1149,11 +1432,13 @@ def build_native():
 
 
 def main() -> int:
-    if len(sys.argv) == 4 and sys.argv[1] == "--main-path-stream":
+    if len(sys.argv) in (4, 5) and sys.argv[1] == "--main-path-stream":
         # child of the main-path phase: one mode's windows on the CPU
+        # (the seeded frames, or "flat" ones)
         sys.path.insert(0, REPO)
-        sys.stdout.buffer.write(main_path_stream(sys.argv[2],
-                                                 int(sys.argv[3])))
+        sys.stdout.buffer.write(main_path_stream(
+            sys.argv[2], int(sys.argv[3]),
+            content=sys.argv[4] if len(sys.argv) == 5 else "seeded"))
         return 0
     if len(sys.argv) == 2 and sys.argv[1] == "--library-payloads":
         # child of the library phase: every run on the CPU
@@ -1184,7 +1469,9 @@ def main() -> int:
     from concurrent.futures import ThreadPoolExecutor
 
     from timg_tpu_torch.ops import (_build, blocks_kernel, libsixel_kernel,
-                                    resize_kernel, sixel_kernel, yuv_kernel)
+                                    resize_kernel, sixel_dcs_kernel,
+                                    sixel_kernel, sixel_runs,
+                                    sixel_runs_kernel, yuv_kernel)
     from timg_tpu_torch.render import ansi, sixel_render
     counters = {   # kernel -> (module, its launch counter)
         "convert": (yuv_kernel, "LAUNCHES"),
@@ -1198,6 +1485,10 @@ def main() -> int:
         "tree_rgb": (sixel_kernel, "TREE_RGB_LAUNCHES"),
         "quarter_cells": (blocks_kernel, "QUARTER_LAUNCHES"),
         "half_cells": (blocks_kernel, "HALF_LAUNCHES"),
+        "run_counts": (sixel_runs_kernel, "COUNT_LAUNCHES"),
+        "compact_runs": (sixel_runs_kernel, "COMPACT_LAUNCHES"),
+        "dcs_lens": (sixel_dcs_kernel, "LENS_LAUNCHES"),
+        "dcs_emit": (sixel_dcs_kernel, "EMIT_LAUNCHES"),
     }
 
     def reset_counts():
@@ -1224,16 +1515,22 @@ def main() -> int:
                 print("setup: ptxas:", line.strip())
 
     results = kernel_phase(dev)
+    transport_legs(dev)
 
     # the CPU references, running while the card runs the same work (two
-    # torch threads each): one child a video mode, one for the library
+    # torch threads each): one child a video mode and a sixel mode's flat
+    # windows, one for the library
     env = dict(os.environ, TIMG_TPU_TORCH_DEVICE="cpu",
                CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="2")
+    env.pop("TIMG_TPU_SIXEL_TRANSPORT", None)
     me = os.path.abspath(__file__)
-    children = {mode: subprocess.Popen(
-        [sys.executable, me, "--main-path-stream", mode, str(n)], env=env,
-        cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE)
-        for mode, n in N_MAIN.items()}
+    runs = {mode: (mode, n, "seeded") for mode, n in N_MAIN.items()}
+    runs.update({f"{mode} flat": (mode, N_FLAT, "flat")
+                 for mode in SIXEL_MODES})
+    children = {key: subprocess.Popen(
+        [sys.executable, me, "--main-path-stream", mode, str(n), content],
+        env=env, cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+        for key, (mode, n, content) in runs.items()}
     children["library"] = subprocess.Popen(
         [sys.executable, me, "--library-payloads"], env=env, cwd=REPO,
         stdout=subprocess.PIPE, stderr=subprocess.PIPE)
@@ -1263,7 +1560,8 @@ def main() -> int:
                           "synchronized): " + ", ".join(
                               f"{key} {leg[key] * 1e3:.3f} ms"
                               for key in BLOCK_LEGS))
-            for k in PATH_KERNELS[mode]:
+            for k in PATH_KERNELS[mode] + (
+                    () if mode in BLOCK_MODES else TRANSPORT_KERNELS["auto"]):
                 if counts[k] <= 0:
                     fail(f"main path {mode} launched no {k} kernel")
             for k in counts:
@@ -1278,6 +1576,45 @@ def main() -> int:
                     fail(f"main path {mode} wrote {n_dcs} sixel images, "
                          f"expected {n}")
             streams[mode] = stream
+        # each sixel mode again on flat windows, in each forced transport:
+        # every transport must carry the window and write the plane's
+        # stream
+        try:
+            for mode in SIXEL_MODES:
+                flat = {}
+                for transport in TRANSPORTS:
+                    os.environ["TIMG_TPU_SIXEL_TRANSPORT"] = transport
+                    reset_counts()
+                    s0 = dict(sixel_runs.STATS)
+                    t0 = time.perf_counter()
+                    flat[transport] = main_path_stream(mode, N_FLAT,
+                                                       content="flat")
+                    torch.cuda.synchronize()
+                    t_main = time.perf_counter() - t0
+                    counts = read_counts()
+                    moved = {k: sixel_runs.STATS[k] - s0[k] for k in s0}
+                    print(f"main path: {mode} flat, transport {transport}: "
+                          f"{N_FLAT} frames in {t_main:.2f} s (host clock), "
+                          f"{len(flat[transport])} bytes, {moved}, "
+                          f"launches {counts}")
+                    if moved[f"frames_{transport}"] != N_FLAT:
+                        fail(f"main path {mode} flat: the {transport} "
+                             f"transport moved {moved} of {N_FLAT} frames")
+                    for k in PATH_KERNELS[mode] + TRANSPORT_KERNELS[transport]:
+                        if counts[k] <= 0:
+                            fail(f"main path {mode} flat, {transport}: "
+                                 f"launched no {k} kernel")
+                    for k in counts:
+                        launches[k] += counts[k]
+                for transport in ("runs", "dcs"):
+                    if flat[transport] != flat["plane"]:
+                        fail(f"main path {mode} flat: the {transport} "
+                             "stream != the plane stream: "
+                             + first_difference(flat[transport],
+                                                flat["plane"]))
+                streams[f"{mode} flat"] = flat["plane"]
+        finally:
+            os.environ.pop("TIMG_TPU_SIXEL_TRANSPORT", None)
         payloads = {}
         for run in LIB_RUNS:
             reset_counts()
@@ -1340,7 +1677,8 @@ def main() -> int:
             if out != streams[mode]:
                 # a second run on the card tells a card that is not
                 # repeatable from one that repeats a different stream
-                again = main_path_stream(mode, N_MAIN[mode])
+                again = main_path_stream(runs[mode][0], runs[mode][1],
+                                         content=runs[mode][2])
                 which = ("equals the cpu stream" if again == out else
                          "equals the first" if again == streams[mode]
                          else "differs from both")
@@ -1377,6 +1715,14 @@ def main() -> int:
          "timg_tpu/ops/blocks.py:82"),
         ("half_cells", "half_cells", "block_cells.cu",
          "timg_tpu/ops/blocks.py:185"),
+        ("band_run_counts", "run_counts", "sixel_runs.cu",
+         "timg_tpu/ops/sixel_runs.py:77"),
+        ("compact_runs", "compact_runs", "sixel_runs.cu",
+         "timg_tpu/ops/sixel_runs.py:86"),
+        ("dcs_band_lens", "dcs_lens", "sixel_dcs.cu",
+         "timg_tpu/ops/sixel_dcs.py:253"),
+        ("dcs_emit", "dcs_emit", "sixel_dcs.cu",
+         "timg_tpu/ops/sixel_dcs.py:336"),
     ]
     kernels = [dict(name=n, route="cuda",
                     source=f"timg_tpu_torch/csrc/{src}", replaces=rep,

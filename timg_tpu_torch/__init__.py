@@ -26,9 +26,16 @@ Layer map (entry point down to the device):
                             dither (cube | libsixel | adaptive) -> fetch;
                             DeviceFrame placeholders, PlaneCache
   render/sixel_render.py -- SixelCanvas; C sixel assembly (native/) or
-                            its Python twin
+                            its Python twin, from planes or run records;
+                            the DCS bands' splice
   render/{canvas,sequencer,renderer}.py -- pacing and cursor control
-  ops/sixel_runs.py      -- device->host plane transport + STATS
+  ops/sixel_runs.py      -- device->host transport (plane, run records or
+                            DCS bands; TIMG_TPU_SIXEL_TRANSPORT) + STATS;
+                            CUDA run kernels (ops/sixel_runs_kernel.py,
+                            csrc/sixel_runs.cu)
+  ops/sixel_dcs.py       -- device-emitted DCS bodies and splice_host;
+                            CUDA kernels (ops/sixel_dcs_kernel.py,
+                            csrc/sixel_dcs.cu)
   ops/yuv.py             -- BT.601 4:2:0 -> RGBA words (torch integer ops)
   ops/pipeline.py        -- resize_compose (library API)
   ops/resize.py          -- video tap tables + plain torch resize;

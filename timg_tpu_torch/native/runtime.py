@@ -108,6 +108,10 @@ def _bind_native(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.timg_sixel_encode.argtypes = [
         ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_void_p, ctypes.c_int, ctypes.c_char_p]
+    lib.timg_sixel_encode_runs.restype = ctypes.c_long
+    lib.timg_sixel_encode_runs.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_char_p]
     lib.timg_resize_polyphase.restype = ctypes.c_long
     lib.timg_resize_polyphase.argtypes = [
         ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,

@@ -1,0 +1,94 @@
+"""Wrappers of the CUDA DCS kernels (csrc/sixel_dcs.cu).
+
+Replace the device side of timg_tpu/ops/sixel_dcs.py ``plan_device``,
+``layout_device`` and ``emit_device`` (XLA device ops in the reference,
+under ``batch_band_lens`` and ``batch_encode``; no Pallas kernel): one
+block a (frame, band) lists the band's colours, lays out its runs and
+counts (``dcs_band_lens``) or writes (``dcs_emit``) its DCS body bytes.
+The functions are bound by integer operations on the H100 (a pixel's
+presence and mask bits, then a listed colour's start compare and byte
+count a column); this design walks each listed colour's columns three
+times with block barriers, far slower than that bound.  The plain
+versions are in ops/sixel_dcs.py.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from timg_tpu_torch.ops import _build, sixel_runs_kernel
+
+LENS_LAUNCHES = 0   # dcs_band_lens launches
+EMIT_LAUNCHES = 0   # dcs_emit launches
+
+_SMEM_MAX = 232448  # shared memory a block can use on the H100
+_bound = None
+
+
+def _lib():
+    global _bound
+    if _bound is None:
+        lib = _build.load()
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.timg_dcs_band_lens.argtypes = [p, i, i, i, ll, ll, p, p, p]
+        lib.timg_dcs_band_lens.restype = ctypes.c_int
+        lib.timg_dcs_emit.argtypes = [p, i, i, i, ll, ll, i, p, p, p]
+        lib.timg_dcs_emit.restype = ctypes.c_int
+        _bound = lib
+    return _bound
+
+
+def _planes(planes: torch.Tensor, h: int, w: int, color_cap: int,
+            what: str) -> torch.Tensor:
+    planes = sixel_runs_kernel.check_planes(planes, h, w, what)
+    if color_cap != 64:
+        raise ValueError(f"{what}: the kernel lists 64 colours a band")
+    if 9 * w > _SMEM_MAX:
+        raise ValueError(f"{what}: w={w} does not fit a block's shared "
+                         "memory")
+    return planes
+
+
+def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def _stream(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+def dcs_band_lens_cuda(planes: torch.Tensor, h: int, w: int,
+                       color_cap: int = 64):
+    """The kernel: [B, >=h, >=w] uint8 CUDA planes -> (band_lens,
+    colour counts), each [B, nb] int32."""
+    global LENS_LAUNCHES
+    planes = _planes(planes, h, w, color_cap, "dcs_band_lens_cuda")
+    b, nb = planes.shape[0], (h + 5) // 6
+    lens = torch.empty((b, nb), dtype=torch.int32, device=planes.device)
+    counts = torch.empty_like(lens)
+    if b:
+        _build.check(_lib().timg_dcs_band_lens(
+            _ptr(planes), b, h, w, planes.stride(0), planes.stride(1),
+            _ptr(lens), _ptr(counts), _stream(planes)), "dcs_band_lens")
+        LENS_LAUNCHES += 1
+    return lens, counts
+
+
+def dcs_emit_cuda(planes: torch.Tensor, h: int, w: int, color_cap: int,
+                  cap: int):
+    """The kernel: (bands [B, nb, cap] uint8, zero past each band's
+    length; band_lens [B, nb] int32)."""
+    global EMIT_LAUNCHES
+    planes = _planes(planes, h, w, color_cap, "dcs_emit_cuda")
+    b, nb = planes.shape[0], (h + 5) // 6
+    bands = torch.zeros((b, nb, cap), dtype=torch.uint8,
+                        device=planes.device)
+    lens = torch.empty((b, nb), dtype=torch.int32, device=planes.device)
+    if b:
+        _build.check(_lib().timg_dcs_emit(
+            _ptr(planes), b, h, w, planes.stride(0), planes.stride(1), cap,
+            _ptr(bands), _ptr(lens), _stream(planes)), "dcs_emit")
+        EMIT_LAUNCHES += 1
+    return bands, lens

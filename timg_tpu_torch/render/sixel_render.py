@@ -19,8 +19,10 @@ Assembly runs in the C assembler of the port's native helper
 assembled, so a run can show which set its time.  ``send`` pops the
 port's SIXEL_PLANES, which the video window primed on the device in
 ``cube``, ``libsixel`` or ``adaptive`` mode; frames from elsewhere
-(stills, animations) are not yet ported.  The run and DCS transports'
-encoders come with the transports slice.
+(stills, animations) are not yet ported.  A frame may come as a plane,
+as run records (``encode_sixel_stream_runs``, the C assembler's records
+entry) or as device-emitted DCS bands (``encode_sixel_stream_dcs``, a
+splice), whichever ops/sixel_runs.py fetched.
 """
 
 from __future__ import annotations
@@ -29,6 +31,8 @@ import threading
 
 import numpy as np
 
+from timg_tpu_torch.ops.sixel_dcs import SixelDcs, splice_host
+from timg_tpu_torch.ops.sixel_runs import SixelRuns, expand_runs_np
 from timg_tpu_torch.options import DisplayOptions, SixelOptions
 from timg_tpu_torch.render.canvas import TerminalCanvas
 from timg_tpu_torch.render.plane_cache import SIXEL_PLANES, not_ported
@@ -103,6 +107,43 @@ def encode_sixel_stream(indices: np.ndarray, palette: np.ndarray) -> bytes:
             _count("c")
             return ctypes.string_at(buf, n)
     return encode_sixel_stream_py(indices, palette)
+
+
+def encode_sixel_stream_runs(runs, palette: np.ndarray) -> bytes:
+    """SixelRuns (device-compacted column runs, ops/sixel_runs.py) ->
+    sixel DCS payload, byte-identical to encode_sixel_stream on the
+    expanded plane.  Uses the C assembler's records entry point (cost
+    scales with run count, not h*w); falls back to plane expansion
+    (``encode_sixel_stream``, which counts the frame)."""
+    from timg_tpu_torch.native import runtime
+
+    lib = runtime.load()
+    if lib is not None and len(palette) <= 256:
+        import ctypes
+
+        records = np.ascontiguousarray(runs.records, dtype=np.int32)
+        band_counts = np.ascontiguousarray(runs.band_counts,
+                                           dtype=np.int32)
+        pal = np.ascontiguousarray(palette[:, :3], dtype=np.uint8)
+        n_bands = (runs.h + 5) // 6
+        cap = (n_bands * len(pal) * (runs.w + 12) + len(pal) * 20 + 256)
+        buf = _tls_buffer(cap)
+        n = lib.timg_sixel_encode_runs(
+            records.ctypes.data, band_counts.ctypes.data, runs.h,
+            runs.w, pal.ctypes.data, len(pal), buf)
+        if n >= 0:
+            _count("c")
+            return ctypes.string_at(buf, n)
+    return encode_sixel_stream(expand_runs_np(runs), palette)
+
+
+def encode_sixel_stream_dcs(dcs, palette: np.ndarray) -> bytes:
+    """SixelDcs (device-emitted DCS body, ops/sixel_dcs.py) -> full
+    sixel payload, byte-identical to encode_sixel_stream on the source
+    plane.  The host work is one join of band slices; no assembler runs
+    (``ASSEMBLED`` does not count it)."""
+    return splice_host(dcs.bands, dcs.band_lens, dcs.h, dcs.w,
+                       np.ascontiguousarray(palette[:, :3], np.uint8))
 
 
 def encode_sixel_stream_py(indices: np.ndarray, palette: np.ndarray) -> bytes:
@@ -292,11 +333,17 @@ class SixelCanvas(TerminalCanvas):
                  end_of_frame_ms: float) -> None:
         """Assemble + hand to the sequencer; async when pooled."""
         prefix = self.consume_prefix()
+        if isinstance(indices, SixelRuns):
+            encode = encode_sixel_stream_runs
+        elif isinstance(indices, SixelDcs):
+            encode = encode_sixel_stream_dcs
+        else:
+            encode = encode_sixel_stream
 
         def assemble() -> bytes:
             out = bytearray(prefix)
             out += self._before
-            out += encode_sixel_stream(indices, palette)
+            out += encode(indices, palette)
             out += self._after
             return bytes(out)
 
