@@ -1048,7 +1048,8 @@ def transport_phase(w720) -> dict:
     """The four transport kernels on the cube dither's index planes of
     the seeded window (720x1280, as the main path dithers them): each
     byte-equal to its plain version (on the card) at B=32 and at the
-    CLI's B=8, timed at both beside its bound (bytes, or the integer
+    CLI's B=8, timed at both (the DCS kernels also in a CUDA graph,
+    device time) beside its bound (bytes, or the integer
     operations the function needs for this data: the listed colours of
     each band) and, for the compaction, torch.masked_select of the
     packed column words by the start mask.  Every seeded frame holds
@@ -1103,6 +1104,8 @@ def transport_phase(w720) -> dict:
                 max_abs_err=err,
                 ms=cuda_ms(lambda: sixel_dcs.batch_band_lens(p, b, h, w),
                            20),
+                graph_ms=graph_ms(lambda: sixel_dcs.batch_band_lens(
+                    p, b, h, w)),
                 plain_ms=cuda_ms(lambda: sixel_dcs.batch_band_lens_plain(
                     p, b, h, w), 1),
                 library_ms=None,
@@ -1113,6 +1116,8 @@ def transport_phase(w720) -> dict:
                 max_abs_err=err,
                 ms=cuda_ms(lambda: sixel_dcs.batch_encode(
                     p, b, h, w, dcap), 20),
+                graph_ms=graph_ms(lambda: sixel_dcs.batch_encode(
+                    p, b, h, w, dcap)),
                 plain_ms=cuda_ms(lambda: sixel_dcs.batch_encode_plain(
                     p, b, h, w, dcap), 1),
                 library_ms=None,
@@ -1129,9 +1134,11 @@ def transport_phase(w720) -> dict:
                 ("dcs_lens", row["dcs_lens"], seeded_data),
                 ("dcs_emit", row["dcs_emit"], seeded_data)):
             lib_ms = r["library_ms"]
+            dev_ms = (f" ({r['graph_ms']:.6f} in a CUDA graph)"
+                      if "graph_ms" in r else "")
             print(f"kernels: {name} B={b} {h}x{w} ({data}): equal to plain; "
-                  f"{r['ms']:.6f} ms, plain {r['plain_ms']:.6f} ms, bound "
-                  f"{r['bound_ms']:.6f} ms ({r['bound_by']}), library "
+                  f"{r['ms']:.6f} ms{dev_ms}, plain {r['plain_ms']:.6f} ms, "
+                  f"bound {r['bound_ms']:.6f} ms ({r['bound_by']}), library "
                   f"{'none' if lib_ms is None else f'{lib_ms:.6f} ms'}")
         if b == N_KERNEL:
             results = row
@@ -1198,6 +1205,30 @@ def flat_planes(b: int, dev):
     return flat
 
 
+def transport_windows(b: int, dev) -> dict:
+    """b frames each of 720x1280 index planes: a flat window
+    (``flat_planes``), a film-like one (the cube dither of smooth
+    gradients) and a noise one (the cube dither of seeded noise)."""
+    import torch
+
+    from timg_tpu_torch.ops import sixel_kernel
+
+    h, w = OUT_H, OUT_W
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    yy = torch.arange(h, device=dev)[:, None]
+    xx = torch.arange(w, device=dev)[None, :]
+    words = torch.stack([
+        (xx * 255 // (w - 1) + 3 * i).clamp(max=255)
+        | ((yy * 255 // (h - 1)) << 8)
+        | (((xx + yy + 5 * i) * 255 // (w + h)).clamp(max=255) << 16)
+        for i in range(b)]).to(torch.int32) | BG_WORD
+    noise_words = torch.randint(0, 1 << 24, (b, h, w), generator=gen,
+                                device=dev, dtype=torch.int32) | BG_WORD
+    return {"flat": flat_planes(b, dev),
+            "film-like": sixel_kernel.fs_dither_cube_cuda(words, h, w),
+            "noise": sixel_kernel.fs_dither_cube_cuda(noise_words, h, w)}
+
+
 def transport_legs(dev) -> None:
     """Per window (the CLI's 8 frames of 720x1280 index planes) and per
     forced transport, the host clock of the device->host leg (the
@@ -1211,32 +1242,18 @@ def transport_legs(dev) -> None:
     transports' streams must be equal."""
     import torch
 
-    from timg_tpu_torch.ops import sixel_kernel, sixel_runs
+    from timg_tpu_torch.ops import sixel_runs
     from timg_tpu_torch.ops.sixel_np import cube_palette
     from timg_tpu_torch.render import sixel_render
 
     h, w, b = OUT_H, OUT_W, N_WINDOW
-    gen = torch.Generator(device=dev).manual_seed(SEED)
-    flat = flat_planes(b, dev)
-    yy = torch.arange(h, device=dev)[:, None]
-    xx = torch.arange(w, device=dev)[None, :]
-    words = torch.stack([
-        (xx * 255 // (w - 1) + 3 * i).clamp(max=255)
-        | ((yy * 255 // (h - 1)) << 8)
-        | (((xx + yy + 5 * i) * 255 // (w + h)).clamp(max=255) << 16)
-        for i in range(b)]).to(torch.int32) | BG_WORD
-    film = sixel_kernel.fs_dither_cube_cuda(words, h, w)
-    noise_words = torch.randint(0, 1 << 24, (b, h, w), generator=gen,
-                                device=dev, dtype=torch.int32) | BG_WORD
-    noise = sixel_kernel.fs_dither_cube_cuda(noise_words, h, w)
     pal = cube_palette()
     encoders = {"ndarray": sixel_render.encode_sixel_stream,
                 "SixelRuns": sixel_render.encode_sixel_stream_runs,
                 "SixelDcs": sixel_render.encode_sixel_stream_dcs}
     verdict = sixel_runs._DCS_FASTER
     try:
-        for name, planes in (("flat", flat), ("film-like", film),
-                             ("noise", noise)):
+        for name, planes in transport_windows(b, dev).items():
             streams = {}
             for transport in TRANSPORTS + ("auto",):
                 os.environ["TIMG_TPU_SIXEL_TRANSPORT"] = transport

@@ -1308,6 +1308,11 @@ def _index_planes(name):
         p = rng.integers(0, 3, (2, 12, 96), np.uint8)
         p[:, :6] = np.arange(96, dtype=np.uint8)[None, None] + 100
         return p, 12, 96
+    if name == "64-colours":       # a band of exactly COLOR_CAP colours
+        p = rng.integers(0, 3, (2, 12, 96), np.uint8)
+        yy, xx = np.mgrid[0:6, 0:96]
+        p[:, :6] = 100 + (5 * xx + yy) % 64
+        return p, 12, 96
     if name == "padded":           # valid region inside a larger plane
         return rng.integers(0, 16, (2, 64, 128), np.uint8), 18, 40
     if name == "long-runs":        # runs of 1,000+ columns
@@ -1318,6 +1323,13 @@ def _index_planes(name):
         p = np.zeros((1, 12, 6000), np.uint8)
         p[:, :, ::7] = 40
         return p, 12, 6000
+    if name == "very-wide":        # over 25,827 (9 w > 227 KB); runs of
+        p = np.full((1, 12, 26000), 7, np.uint8)   # 10,000+ columns
+        p[:, :, 25000:] = 9
+        p[:, 3, 100:20000:50] = 200
+        p[:, 8, 13000:13100] = rng.integers(0, 4, 100)
+        p[:, 10, 3:25990] = 7 + rng.integers(0, 2, 25987)
+        return p, 12, 26000
     if name == "video":            # 720x1280, a dither's few colours
         yy, xx = np.mgrid[0:720, 0:1280]
         base = (xx // 40 + yy // 90) % 24
@@ -1327,7 +1339,7 @@ def _index_planes(name):
 
 
 INDEX_CASES = ["noise", "few-colours", "sign-wrap", "many-colours",
-               "padded", "long-runs", "wide"]
+               "64-colours", "padded", "long-runs", "wide", "very-wide"]
 
 
 def _emulate_runs(plane, h, w):
@@ -1353,46 +1365,136 @@ def _digit(v, nd, k):
                              100 if p == 2 else 1000)) % 10
 
 
-def _emulate_dcs_band(rows, w):
-    """csrc/sixel_dcs.cu for one band, serially: (body, colour count)."""
-    def digits(v):
-        return 4 if v >= 1000 else 3 if v >= 100 else 2 if v >= 10 else 1
+def _ndigits(v):
+    """Decimal digits, capped at 4 as the reference counts them."""
+    return 4 if v >= 1000 else 3 if v >= 100 else 2 if v >= 10 else 1
 
+
+def _run_bytes(n):
+    return n if n <= 3 else 2 + _ndigits(n)
+
+
+def _dcs_walk(mrow, t0, end, state, chunk, out=None):
+    """One warp's walk of one colour's mask row over columns [t0, end) of
+    a tile (mrow: the tile's buffer row, zero past w), ``chunk`` columns a
+    step, one a lane; ``state`` is [prev, start, acc], carried between
+    tiles.  With ``out`` (a bytearray) each run's bytes go in at acc plus
+    the step's exclusive scan, written by the lane at the run's end."""
+    lanes = np.arange(chunk)
+    prev, start, acc = state
+    quiet = prev == 0
+    c0 = t0
+    while c0 < end:
+        if quiet:         # skim 4 columns a lane to the first nonzero step
+            c = c0 + 4 * lanes
+            nz = [ci >= end or mrow[ci - t0:ci - t0 + 4].any() for ci in c]
+            if not any(nz):
+                c0 += 4 * chunk
+                continue
+            c0 += nz.index(True) // (chunk // 4) * chunk
+            if c0 >= end:
+                break
+        x = c0 + lanes
+        m = mrow[x - t0].astype(np.int64)
+        pm = np.concatenate([[prev], m[:-1]])
+        st = np.nonzero(m != pm)[0]               # the ballot's lanes
+        if len(st):
+            # each start lane ends the run before it: its start is the
+            # highest start below it in the step, else the carried one
+            ps = np.concatenate([[start], c0 + st[:-1]])
+            lens = x[st] - ps
+            nbytes = [_run_bytes(int(n)) for n in lens]
+            if out is None:
+                acc += sum(nbytes)
+            else:
+                q = acc + np.cumsum(nbytes) - nbytes   # exclusive scan
+                for k, n, v in zip(q, lens, pm[st]):
+                    nd = _ndigits(n)
+                    run = ([ord("!")] + [_digit(n, nd, d) for d in range(nd)]
+                           + [0x3F + v]) if n > 3 else [0x3F + v] * n
+                    out[k:k + len(run)] = bytes(run)
+                acc += sum(nbytes)
+            start = c0 + int(st[-1])
+        prev = int(m[-1])
+        quiet = not len(st) and prev == 0
+        c0 += chunk
+    state[:] = [prev, start, acc]
+
+
+def _emulate_dcs_band(rows, w, chunk=32):
+    """csrc/sixel_dcs.cu for one band, serially, a warp's lanes as
+    ``chunk`` columns (the kernel's 32; a smaller one makes runs cross
+    steps and tiles on small planes): (body, colour count)."""
     present = np.zeros(256, bool)
     present[rows.ravel()] = True
-    listed = np.nonzero(present)[0]
-    out, seen = [], False
-    for color in listed[:64]:
-        m = np.zeros(w, np.int64)
+    words = [sum(1 << b for b in range(32) if present[32 * k + b])
+             for k in range(8)]
+    slot = np.full(256, 255)
+    clist = []
+    for c in np.nonzero(present)[0]:      # popc of the set bits below
+        rank = (sum(bin(v).count("1") for v in words[:c // 32])
+                + bin(words[c // 32] & ((1 << c % 32) - 1)).count("1"))
+        if rank < 64:
+            slot[c] = rank
+            clist.append(int(c))
+    total = sum(bin(v).count("1") for v in words)
+    # columns 0..w in tiles as wide as a budget of mask bytes lets the
+    # listed colours' rows be (the kernel's 32 KB at 32 lanes)
+    cols = -(-(w + 1) // chunk) * chunk
+    budget = min(1024 * chunk, 64 * cols)
+    tile = min(cols, budget // max(len(clist), 1) // chunk * chunk)
+
+    def masks(t0):                        # [64, tile], zero past w
+        m = np.zeros((64, tile), np.uint8)
+        xs = np.arange(min(tile, w - t0))
         for r in range(rows.shape[0]):
-            m |= (rows[r] == color).astype(np.int64) << r
-        starts = [x for x in range(w) if x == 0 or m[x] != m[x - 1]]
-        content = bool(m.any())
-        if content:
-            nd = digits(int(color))
-            out += [ord("$")] * seen + [ord("#")]
-            out += [_digit(int(color), nd, k) for k in range(nd)]
-        for k, x in enumerate(starts):
-            n = (starts[k + 1] if k + 1 < len(starts) else w) - x
-            v = int(m[x])
-            if k == len(starts) - 1 and v == 0:
-                continue
-            if n > 3:
-                nd = digits(n)
-                out += [ord("!")] + [_digit(n, nd, d) for d in range(nd)]
-                out += [0x3F + v]
-            else:
-                out += [0x3F + v] * n
-        seen = seen or content
-    return bytes(out), len(listed)
+            s = slot[rows[r, t0 + xs]]
+            ok = s != 255
+            m[s[ok], xs[ok]] |= np.uint8(1 << r)
+        return m
+
+    states = [[0, 0, 0] for _ in clist]
+    for t0 in range(0, w + 1, tile):
+        m = masks(t0)
+        for s in range(len(clist)):
+            _dcs_walk(m[s], t0, min(t0 + tile, w + 1), states[s], chunk)
+    # a row has content exactly when its runs hold bytes; headers and the
+    # scan of the row totals
+    body = [st[2] for st in states]
+    heads, seen = [], False
+    for color, b in zip(clist, body):
+        head = ([ord("$")] * seen + [ord("#")]
+                + [ord(d) for d in str(color)]) if b else []
+        heads.append(head)
+        seen = seen or b > 0
+    at = np.cumsum([0] + [len(h) + b for h, b in zip(heads, body)])
+    out = bytearray(int(at[-1]))
+    for s, head in enumerate(heads):
+        out[at[s]:at[s] + len(head)] = bytes(head)
+        states[s] = [0, 0, int(at[s]) + len(head)]
+    for t0 in range(0, w + 1, tile):
+        m = masks(t0)
+        for s in range(len(clist)):
+            if body[s]:
+                _dcs_walk(m[s], t0, min(t0 + tile, w + 1), states[s], chunk,
+                          out)
+    for s in range(len(clist)):
+        assert not body[s] or states[s][2] == at[s + 1]
+    return bytes(out), total
 
 
+@pytest.mark.parametrize("chunk", [32, 4])
 @pytest.mark.parametrize("name", ["noise", "few-colours", "sign-wrap",
-                                  "many-colours", "padded", "long-runs"])
-def test_transport_kernel_algorithms_match_plain(name):
-    """Serial emulations of the run and DCS kernels' algorithms (start
-    ranks after the earlier bands' counts; the colour list, start list,
-    trailing-zero drop and digits) against the plain versions."""
+                                  "many-colours", "64-colours", "padded",
+                                  "long-runs", "very-wide"])
+def test_transport_kernel_algorithms_match_plain(name, chunk):
+    """Serial emulations of the run and DCS kernels' algorithms against
+    the plain versions: the run kernels' start ranks after the earlier
+    bands' counts; the DCS kernels' slots from the popc of the presence
+    set, each colour's walk in steps of ``chunk`` columns (the kernel's
+    32 lanes, or 4 so that runs cross steps and tiles on small planes)
+    with its run state carried, the skim over zero steps, the row totals
+    and headers, their scan, and the emit at the scanned offsets."""
     from timg_tpu_torch.ops import sixel_dcs, sixel_runs
 
     planes, h, w = _index_planes(name)
@@ -1409,7 +1511,7 @@ def test_transport_kernel_algorithms_match_plain(name):
         np.testing.assert_array_equal(records[i, :len(recs)].numpy(), recs)
         for k in range((h + 5) // 6):
             body, n = _emulate_dcs_band(planes[i, 6 * k:min(h, 6 * k + 6),
-                                               :w], w)
+                                               :w], w, chunk)
             assert n == colours[i, k]
             assert len(body) == lens[i, k]
             assert bytes(bands[i, k, :len(body)].numpy()) == body
@@ -1469,6 +1571,29 @@ def test_dcs_kernels_match_plain(cuda_device, name):
     for g, x in zip(got, want):
         assert torch.equal(g.cpu(), x)
     cap = sixel_dcs.bucket_cap(int(want[0].max()))
+    got = sixel_dcs.batch_encode(d, b, h, w, cap)
+    torch.cuda.synchronize()
+    want = sixel_dcs.batch_encode_plain(t, b, h, w, cap)
+    for g, x in zip(got, want):
+        assert torch.equal(g.cpu(), x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cap", [1024, 4096, 4100])
+def test_dcs_emit_writes_every_byte(cuda_device, cap):
+    """The band buffers come from torch.empty: dcs_emit writes every byte,
+    zero tails included, whether the band is staged in shared memory (cap
+    up to 2 KB, a multiple of 16) or written in place.  The block the
+    buffers reuse is filled with 0xAB first."""
+    from timg_tpu_torch.ops import sixel_dcs
+
+    planes, h, w = _index_planes("few-colours")
+    b, nb = len(planes), (h + 5) // 6
+    t = torch.from_numpy(planes)
+    d = t.to(cuda_device)
+    poison = torch.full((b, nb, cap), 0xAB, dtype=torch.uint8,
+                        device=cuda_device)
+    del poison
     got = sixel_dcs.batch_encode(d, b, h, w, cap)
     torch.cuda.synchronize()
     want = sixel_dcs.batch_encode_plain(t, b, h, w, cap)

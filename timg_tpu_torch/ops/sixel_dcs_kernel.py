@@ -3,12 +3,16 @@
 Replace the device side of timg_tpu/ops/sixel_dcs.py ``plan_device``,
 ``layout_device`` and ``emit_device`` (XLA device ops in the reference,
 under ``batch_band_lens`` and ``batch_encode``; no Pallas kernel): one
-block a (frame, band) lists the band's colours, lays out its runs and
-counts (``dcs_band_lens``) or writes (``dcs_emit``) its DCS body bytes.
-The functions are bound by integer operations on the H100 (a pixel's
-presence and mask bits, then a listed colour's start compare and byte
-count a column); this design walks each listed colour's columns three
-times with block barriers, far slower than that bound.  The plain
+block a (frame, band) lists the band's colours from a 256-bit presence
+set, builds their mask rows a tile of columns at a time, and one warp a
+listed colour walks its row 32 columns a step (ballots, no block
+barrier inside a walk) to count (``dcs_band_lens``) or write
+(``dcs_emit``, which walks twice: sizes, then bytes) its DCS body bytes.
+``dcs_emit`` writes every byte of the band buffers, zero tails included,
+so they are allocated with ``torch.empty``.  The functions are bound by
+integer operations on the H100: a pixel's presence and mask bits, then a
+listed colour and column's start compare and byte count.  Shared memory
+does not grow with w, so the kernels take every w < 32768.  The plain
 versions are in ops/sixel_dcs.py.
 """
 
@@ -23,7 +27,6 @@ from timg_tpu_torch.ops import _build, sixel_runs_kernel
 LENS_LAUNCHES = 0   # dcs_band_lens launches
 EMIT_LAUNCHES = 0   # dcs_emit launches
 
-_SMEM_MAX = 232448  # shared memory a block can use on the H100
 _bound = None
 
 
@@ -45,9 +48,6 @@ def _planes(planes: torch.Tensor, h: int, w: int, color_cap: int,
     planes = sixel_runs_kernel.check_planes(planes, h, w, what)
     if color_cap != 64:
         raise ValueError(f"{what}: the kernel lists 64 colours a band")
-    if 9 * w > _SMEM_MAX:
-        raise ValueError(f"{what}: w={w} does not fit a block's shared "
-                         "memory")
     return planes
 
 
@@ -79,11 +79,11 @@ def dcs_band_lens_cuda(planes: torch.Tensor, h: int, w: int,
 def dcs_emit_cuda(planes: torch.Tensor, h: int, w: int, color_cap: int,
                   cap: int):
     """The kernel: (bands [B, nb, cap] uint8, zero past each band's
-    length; band_lens [B, nb] int32)."""
+    length, every byte written by the kernel; band_lens [B, nb] int32)."""
     global EMIT_LAUNCHES
     planes = _planes(planes, h, w, color_cap, "dcs_emit_cuda")
     b, nb = planes.shape[0], (h + 5) // 6
-    bands = torch.zeros((b, nb, cap), dtype=torch.uint8,
+    bands = torch.empty((b, nb, cap), dtype=torch.uint8,
                         device=planes.device)
     lens = torch.empty((b, nb), dtype=torch.int32, device=planes.device)
     if b:

@@ -38,7 +38,7 @@ def _lib():
 def check_planes(planes: torch.Tensor, h: int, w: int,
                  what: str) -> torch.Tensor:
     """Check [B, >=h, >=w] uint8 CUDA planes (w < 32768, as the records'
-    x field and the DCS kernel's start columns need); rows made
+    x field needs; the DCS kernels take the same widths); rows made
     contiguous."""
     if not (planes.is_cuda and planes.dtype == torch.uint8
             and planes.dim() == 3 and planes.shape[1] >= h >= 1
