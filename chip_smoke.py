@@ -1048,8 +1048,8 @@ def transport_phase(w720) -> dict:
     """The four transport kernels on the cube dither's index planes of
     the seeded window (720x1280, as the main path dithers them): each
     byte-equal to its plain version (on the card) at B=32 and at the
-    CLI's B=8, timed at both (the DCS kernels also in a CUDA graph,
-    device time) beside its bound (bytes, or the integer
+    CLI's B=8, timed at both by events and in a CUDA graph (device
+    time) beside its bound (bytes, or the integer
     operations the function needs for this data: the listed colours of
     each band) and, for the compaction, torch.masked_select of the
     packed column words by the start mask.  Every seeded frame holds
@@ -1093,6 +1093,7 @@ def transport_phase(w720) -> dict:
             "run_counts": dict(
                 max_abs_err=err,
                 ms=cuda_ms(lambda: srk.band_run_counts_cuda(p, h, w), 50),
+                graph_ms=graph_ms(lambda: srk.band_run_counts_cuda(p, h, w)),
                 plain_ms=cuda_ms(lambda: sixel_runs.band_run_counts_plain(
                     p, h, w), 3),
                 library_ms=None,
@@ -1151,8 +1152,9 @@ def compaction(p, what: str) -> dict:
     """The compaction kernel on [B, 720, 1280] u8 planes: byte-equal to
     its plain version and to torch.masked_select of the packed column
     words by the start mask (each frame's records up to the cap), timed
-    alone given the counts beside its bound: the planes and the counts
-    read, the records [B, cap, 2] (zero past a frame's count) written."""
+    alone given the counts, by events and in a CUDA graph, beside its
+    bound: the planes and the counts read, the records [B, cap, 2] (zero
+    past a frame's count, written by the kernel) written."""
     import torch
 
     from timg_tpu_torch.ops import sixel_runs
@@ -1185,6 +1187,8 @@ def compaction(p, what: str) -> dict:
         runs=int(counts.sum()), max_abs_err=err,
         ms=cuda_ms(lambda: srk.compact_records_cuda(p, h, w, counts, cap),
                    50),
+        graph_ms=graph_ms(lambda: srk.compact_records_cuda(p, h, w, counts,
+                                                           cap)),
         plain_ms=cuda_ms(lambda: sixel_runs.compact_runs_plain(
             p, h, w, cap), 3),
         library_ms=cuda_ms(lambda: torch.masked_select(packed, mask), 20),

@@ -1342,21 +1342,204 @@ INDEX_CASES = ["noise", "few-colours", "sign-wrap", "many-colours",
                "64-colours", "padded", "long-runs", "wide", "very-wide"]
 
 
-def _emulate_runs(plane, h, w):
-    """csrc/sixel_runs.cu, serially: each band's start columns ranked in
-    x order after the counts of the bands before it."""
-    counts, records = [], []
-    for band in range(0, h, 6):
-        c = np.zeros((6, w), np.uint32)
-        c[:min(6, h - band)] = plane[band:min(h, band + 6), :w]
-        w0 = c[0] | (c[1] << 8) | (c[2] << 16) | (c[3] << 24)
-        w1 = c[4] | (c[5] << 8)
-        xs = [x for x in range(w) if x == 0 or w0[x] != w0[x - 1]
-              or w1[x] != w1[x - 1]]
-        counts.append(len(xs))
-        records += [(w0[x], w1[x] | (x << 16)) for x in xs]
-    return (np.array(counts, np.int32),
-            np.array(records, np.uint32).view(np.int32).reshape(-1, 2))
+_POPC16 = np.array([bin(i).count("1") for i in range(1 << 16)], np.int64)
+_U32 = np.uint64(0xFFFFFFFF)
+
+
+def _pair(lo, hi):
+    """(hi:lo) as uint64."""
+    return (np.asarray(hi, np.uint64) << np.uint64(32)) | np.asarray(
+        lo, np.uint64)
+
+
+def _funnel_r(lo, hi, s):
+    """__funnelshift_r: the low word of (hi:lo) >> s."""
+    return ((_pair(lo, hi) >> np.uint64(s)) & _U32).astype(np.uint32)
+
+
+def _funnel_l(lo, hi, s):
+    """__funnelshift_l: the high word of (hi:lo) << s."""
+    v = _pair(lo, hi) << np.uint64(s)
+    return ((v >> np.uint64(32)) & _U32).astype(np.uint32)
+
+
+def _byte_perm(x, y, sel):
+    """__byte_perm: byte i of the result is byte (sel >> 4 i) & 7 of
+    (y:x)."""
+    v = _pair(x, y)
+    out = np.zeros(v.shape, np.uint64)
+    for i in range(4):
+        k = np.uint64(8 * ((sel >> (4 * i)) & 7))
+        out |= ((v >> k) & np.uint64(255)) << np.uint64(8 * i)
+    return out.astype(np.uint32)
+
+
+def _run_memory(planes, offset):
+    """The planes at byte ``offset`` of a flat buffer whose byte 0 is
+    16-byte aligned, the rest of it seeded junk: rows 16-byte aligned
+    when offset is 0, else an odd row stride, so that each row of a band
+    has its own alignment.  (memory, frame stride, row stride)."""
+    b, rows, cols = planes.shape
+    if offset == 0:
+        rs = -(-cols // 16) * 16
+    else:
+        rs = cols + 7 if cols % 2 == 0 else cols + 6
+    fs = rows * rs + (0 if offset == 0 else 3)
+    mem = np.random.default_rng(offset).integers(
+        0, 256, offset + b * fs + 32, np.uint8)
+    for f in range(b):
+        for y in range(rows):
+            a = offset + f * fs + y * rs
+            mem[a:a + cols] = planes[f, y]
+    return mem, fs, rs
+
+
+def _load_span(mem, src, rs, nrows, x0, w, span):
+    """load_span of csrc/sixel_runs.cu for one warp's 32 lanes (x0: each
+    lane's first column; span: the kernel's 16 columns a lane, or 4):
+    R [6, span // 4, 32] uint32.  A lane loads the aligned chunk of
+    ``span`` bytes at or before its span, takes the next from the lane
+    above (lane 31 loads it where the row is unaligned), and shifts by
+    words, then by bytes."""
+    nwords = span // 4
+    lanes = np.arange(32)
+    R = np.zeros((6, nwords, 32), np.uint32)
+    for r in range(6):
+        row = src + r * rs
+        off = row % span
+
+        def chunks(x, load):
+            out = np.zeros((nwords, 32), np.uint32)
+            if load.any():
+                a = row - off + x[load]
+                out[:, load] = mem[a[:, None] + np.arange(span)].copy().view(
+                    "<u4").T
+            return out
+
+        lo = chunks(x0, (r < nrows) & (x0 - off < w))
+        hi = np.roll(lo, -1, axis=1)              # __shfl_down_sync(., 1)
+        hi[:, 31] = chunks(x0 + span, (lanes == 31) & (r < nrows) & (off > 0)
+                           & (x0 + span - off < w))[:, 31]
+        e = np.concatenate([lo, hi])[off // 4:]
+        for j in range(nwords):
+            R[r, j] = _funnel_r(e[j], e[j + 1], 8 * (off % 4))
+    return R
+
+
+def _column_at(R, j, k):
+    sel = k | (k + 4) << 4
+    a = _byte_perm(R[0, j], R[1, j], sel)
+    b = _byte_perm(R[2, j], R[3, j], sel)
+    return (_byte_perm(a, b, 0x5410),
+            _byte_perm(R[4, j], R[5, j], sel) & np.uint32(0xFFFF))
+
+
+def _span_starts(R, prev, x0, w, span):
+    """span_starts: each row XOR itself one column right (column x0 - 1
+    from prev), ORed over the rows; a nonzero byte is a start."""
+    nwords = span // 4
+    d = np.zeros((nwords, 32), np.uint32)
+    for r in range(6):
+        d[0] |= R[r, 0] ^ _byte_perm(prev[0] if r < 4 else prev[1], R[r, 0],
+                                     0x6540 | (r & 3))
+        for j in range(1, nwords):
+            d[j] |= R[r, j] ^ _funnel_l(R[r, j - 1], R[r, j], 8)
+    m = np.zeros(32, np.int64)
+    for j in range(nwords):
+        nz = (((d[j] & np.uint32(0x7F7F7F7F)) + np.uint32(0x7F7F7F7F))
+              | d[j]) & np.uint32(0x80808080)
+        bits = ((nz >> np.uint32(7)) * np.uint32(0x00204081)) >> np.uint32(21)
+        m |= (bits & np.uint32(15)).astype(np.int64) << (4 * j)
+    m[x0 == 0] |= 1
+    valid = w - x0
+    return np.where(valid >= span, m, np.where(
+        valid > 0, m & ((1 << np.clip(valid, 0, span)) - 1), 0))
+
+
+def _emulate_runs(planes, h, w, n, span=16, offset=0):
+    """csrc/sixel_runs.cu, serially, on the planes laid out by
+    ``_run_memory``: band_run_counts (a warp a band, steps of 32 spans,
+    the neighbour from the lane below or carried from the step before)
+    and compact_runs (up to 4 warps a band, tiles of their spans; each
+    warp's first flag and the scan of the warp totals after the tile's
+    barrier; a slot = the band's first record + the earlier tiles + the
+    earlier warps + the lanes below + the popc below in the lane; slots
+    at or past n dropped; the frame's zero tail shared out over its
+    bands).  The records start as junk, so an unwritten one shows.
+    (counts [B, nb] int32, records [B, n, 2] int32)."""
+    mem, fs, rs = _run_memory(planes, offset)
+    b, nb = len(planes), (h + 5) // 6
+    lanes, wcols = np.arange(32), 32 * span
+    nw = min(4, -(-w // wcols))
+    last_word = span // 4 - 1
+    counts = np.zeros((b, nb), np.int64)
+    out = np.full((b, n, 2), 0xABABABAB, np.uint32)
+    for f in range(b):
+        for band in range(nb):
+            src = offset + f * fs + band * 6 * rs
+            nrows = min(6, h - 6 * band)
+            carry = (np.uint32(0), np.uint32(0))
+            for xt in range(0, w, wcols):            # band_run_counts
+                x0 = xt + span * lanes
+                R = _load_span(mem, src, rs, nrows, x0, w, span)
+                last = _column_at(R, last_word, 3)
+                prev = tuple(np.concatenate([[c], v[:-1]])
+                             for c, v in zip(carry, last))
+                counts[f, band] += _POPC16[_span_starts(R, prev, x0, w,
+                                                        span)].sum()
+                carry = (last[0][31], last[1][31])
+    for f in range(b):
+        total = int(counts[f].sum())
+        for band in range(nb):                       # compact_runs
+            src = offset + f * fs + band * 6 * rs
+            nrows = min(6, h - 6 * band)
+            first_rec = int(counts[f, :band].sum())
+            carry, running = (np.uint32(0), np.uint32(0)), 0
+            for xt in range(0, w, nw * wcols):
+                x0 = [xt + k * wcols + span * lanes for k in range(nw)]
+                R = [_load_span(mem, src, rs, nrows, x0[k], w, span)
+                     for k in range(nw)]
+                m, part, inc, cnt = [], [], [], []
+                for k in range(nw):
+                    last = _column_at(R[k], last_word, 3)
+                    prev = tuple(np.concatenate([v[:1], v[:-1]])
+                                 for v in last)     # __shfl_up_sync(., 1)
+                    mk = _span_starts(R[k], prev, x0[k], w, span)
+                    mk[0] &= ~1                     # after the barrier
+                    m.append(mk)
+                    cnt.append(_POPC16[mk])
+                    inc.append(np.cumsum(cnt[k]))
+                    part.append(int(inc[k][31]))
+                before, lead, tile, p = [], [], 0, carry
+                for k in range(nw):                 # after the barrier
+                    first = _column_at(R[k], 0, 0)
+                    q = (first[0][0], first[1][0])
+                    xk = xt + k * wcols
+                    f0 = int(xk < w and (xk == 0 or q != p))
+                    before.append(tile)
+                    lead.append(f0)
+                    tile += part[k] + f0
+                    last = _column_at(R[k], last_word, 3)
+                    p = (last[0][31], last[1][31])
+                carry = p
+                for k in range(nw):
+                    m[k][0] |= lead[k]
+                    base = (first_rec + running + before[k]
+                            + np.where(lanes > 0, lead[k], 0)
+                            + inc[k] - cnt[k])
+                    for c in range(span):
+                        pos = base + _POPC16[m[k] & ((1 << c) - 1)]
+                        sel = (((m[k] >> c) & 1) == 1) & (pos < n)
+                        col = _column_at(R[k], c // 4, c % 4)
+                        x = (x0[k][sel] + c).astype(np.uint32)
+                        out[f, pos[sel], 0] = col[0][sel]
+                        out[f, pos[sel], 1] = col[1][sel] | (x << 16)
+                running += tile
+            if total < n:                            # the zero tail
+                per = -(-(n - total) // nb)
+                lo = total + band * per
+                out[f, lo:min(n, lo + per)] = 0
+    return counts.astype(np.int32), out.view(np.int32)
 
 
 def _digit(v, nd, k):
@@ -1489,8 +1672,8 @@ def _emulate_dcs_band(rows, w, chunk=32):
                                   "long-runs", "very-wide"])
 def test_transport_kernel_algorithms_match_plain(name, chunk):
     """Serial emulations of the run and DCS kernels' algorithms against
-    the plain versions: the run kernels' start ranks after the earlier
-    bands' counts; the DCS kernels' slots from the popc of the presence
+    the plain versions: the run kernels (``_emulate_runs`` on aligned
+    rows); the DCS kernels' slots from the popc of the presence
     set, each colour's walk in steps of ``chunk`` columns (the kernel's
     32 lanes, or 4 so that runs cross steps and tiles on small planes)
     with its run state carried, the skim over zero steps, the row totals
@@ -1505,16 +1688,38 @@ def test_transport_kernel_algorithms_match_plain(name, chunk):
     lens, colours = sixel_dcs.batch_band_lens_plain(t, b, h, w)
     bands, _ = sixel_dcs.batch_encode_plain(
         t, b, h, w, sixel_dcs.bucket_cap(int(lens.max())))
+    counts, recs = _emulate_runs(planes, h, w, records.shape[1])
+    np.testing.assert_array_equal(band_counts.numpy(), counts)
+    np.testing.assert_array_equal(records.numpy(), recs)
     for i in range(b):
-        counts, recs = _emulate_runs(planes[i], h, w)
-        np.testing.assert_array_equal(band_counts[i].numpy(), counts)
-        np.testing.assert_array_equal(records[i, :len(recs)].numpy(), recs)
         for k in range((h + 5) // 6):
             body, n = _emulate_dcs_band(planes[i, 6 * k:min(h, 6 * k + 6),
                                                :w], w, chunk)
             assert n == colours[i, k]
             assert len(body) == lens[i, k]
             assert bytes(bands[i, k, :len(body)].numpy()) == body
+
+
+@pytest.mark.parametrize("offset", [0, 1, 5, 15])
+@pytest.mark.parametrize("span", [16, 4])
+@pytest.mark.parametrize("name", INDEX_CASES)
+def test_run_kernel_algorithms_match_plain(name, span, offset):
+    """The run kernels' algorithm (``_emulate_runs``) against the plain
+    versions: spans of the kernel's 16 columns, or 4 so that small
+    planes take many steps, tiles and warps; planes from a 16-byte
+    aligned base with aligned rows, or from base column offsets 1, 5
+    and 15 with an odd row stride; records to the default cap and to
+    200 (the dense cases truncated), every slot written."""
+    from timg_tpu_torch.ops import sixel_runs
+
+    planes, h, w = _index_planes(name)
+    t = torch.from_numpy(planes)
+    for n in (sixel_runs.default_cap(h, w), 200):
+        counts, records = _emulate_runs(planes, h, w, n, span, offset)
+        np.testing.assert_array_equal(
+            counts, sixel_runs.band_run_counts_plain(t, h, w).numpy())
+        np.testing.assert_array_equal(
+            records, sixel_runs.compact_records_plain(t, h, w, n).numpy())
 
 
 def test_transport_wrappers_take_the_plain_versions_on_cpu():
@@ -1533,6 +1738,27 @@ def test_transport_wrappers_take_the_plain_versions_on_cpu():
     for got, want in zip(sixel_dcs.batch_encode(t, 3, h, w, 1024),
                          sixel_dcs.batch_encode_plain(t, 3, h, w, 1024)):
         assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("name", ["few-colours", "noise", "padded"])
+def test_compact_records_plain_cuts_and_zero_pads(name):
+    """The transport's compaction helper on CPU tensors: compact_runs_plain's
+    records cut to n or zero-padded to n, for n below a frame's count,
+    at the default cap and past nb * w."""
+    from timg_tpu_torch.ops import sixel_runs
+
+    planes, h, w = _index_planes(name)
+    t = torch.from_numpy(planes)
+    counts = sixel_runs.band_run_counts(t, h, w)
+    full = sixel_runs.compact_runs_plain(t, h, w, (h + 5) // 6 * w)[0]
+    assert int(counts.sum(1).min()) > 7
+    for n in (0, 7, int(counts.sum(1).min()), sixel_runs.default_cap(h, w),
+              (h + 5) // 6 * w + 50):
+        got = sixel_runs.compact_records(t, h, w, counts, n)
+        want = torch.zeros((len(planes), n, 2), dtype=torch.int32)
+        k = min(n, full.shape[1])
+        want[:, :k] = full[:, :k]
+        assert got.shape == want.shape and torch.equal(got, want)
 
 
 @pytest.mark.cuda
@@ -1602,18 +1828,61 @@ def test_dcs_emit_writes_every_byte(cuda_device, cap):
 
 
 @pytest.mark.cuda
-def test_transport_kernels_take_strided_planes(cuda_device):
+@pytest.mark.parametrize("name", ["few-colours", "noise", "very-wide"])
+def test_compact_runs_writes_every_byte(cuda_device, name):
+    """The records come from torch.empty: compact_runs writes every
+    element, the zero tail from each frame's count to n included, at n
+    past every count, at the default cap and truncated.  The block the
+    records reuse is filled with 0xAB first."""
+    from timg_tpu_torch.ops import sixel_runs
+
+    planes, h, w = _index_planes(name)
+    b = len(planes)
+    t = torch.from_numpy(planes)
+    d = t.to(cuda_device)
+    counts = sixel_runs.band_run_counts(d, h, w)
+    for n in (int(counts.sum(1).max()) + 300, sixel_runs.default_cap(h, w),
+              200):
+        poison = torch.full((b, n, 2), -0x54545455, dtype=torch.int32,
+                            device=cuda_device)    # every byte 0xAB
+        del poison
+        got = sixel_runs.compact_records(d, h, w, counts, n)
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(),
+                           sixel_runs.compact_records_plain(t, h, w, n))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", range(16))
+def test_transport_kernels_take_strided_planes(cuda_device, offset):
     """A window of planes whose rows are longer than w and whose frames
-    are a slice of a larger batch (the video window's padded planes)."""
+    are a slice of a larger batch (the video window's padded planes),
+    starting at each byte offset of a 16-byte chunk; the run kernels also
+    on planes of an odd row stride (each row of a band its own
+    alignment)."""
     from timg_tpu_torch.ops import sixel_dcs, sixel_runs
 
     planes, h, w = _index_planes("padded")
-    t = torch.from_numpy(planes)[:, 3:, 5:]
-    d = torch.from_numpy(planes).to(cuda_device)[:, 3:, 5:]
-    assert torch.equal(sixel_runs.compact_runs(d, h, w, 512)[0].cpu(),
-                       sixel_runs.compact_runs_plain(t, h, w, 512)[0])
+    t = torch.from_numpy(planes)[:, 3:, offset:]
+    d = torch.from_numpy(planes).to(cuda_device)[:, 3:, offset:]
+    for n in (512, 40):
+        assert torch.equal(sixel_runs.band_run_counts(d, h, w).cpu(),
+                           sixel_runs.band_run_counts_plain(t, h, w))
+        assert torch.equal(sixel_runs.compact_runs(d, h, w, n)[0].cpu(),
+                           sixel_runs.compact_runs_plain(t, h, w, n)[0])
     assert torch.equal(sixel_dcs.batch_encode(d, 2, h, w, 1024)[0].cpu(),
                        sixel_dcs.batch_encode_plain(t, 2, h, w, 1024)[0])
+    # rows of 127 bytes (an odd row and frame stride) from the offset
+    flat = torch.from_numpy(np.random.default_rng(offset).integers(
+        0, 4, offset + 2 * 63 * 127, np.uint8))
+    shape, strides = (2, 63, 127), (63 * 127, 127, 1)
+    t = torch.as_strided(flat, shape, strides, offset)
+    d = torch.as_strided(flat.to(cuda_device), shape, strides, offset)
+    for hh, ww in ((18, 40), (63, 127)):
+        assert torch.equal(sixel_runs.band_run_counts(d, hh, ww).cpu(),
+                           sixel_runs.band_run_counts_plain(t, hh, ww))
+        assert torch.equal(sixel_runs.compact_runs(d, hh, ww, 512)[0].cpu(),
+                           sixel_runs.compact_runs_plain(t, hh, ww, 512)[0])
 
 
 def test_plain_repack_does_not_follow_a_low_cpu_root(monkeypatch):

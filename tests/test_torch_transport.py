@@ -238,6 +238,65 @@ def test_fetch_matches_jax_transport_and_stats(monkeypatch, mode, verdict,
         assert kinds == [expect[mode, kind]] * len(planes)
 
 
+@pytest.mark.parametrize("mode", ["runs", "auto"])
+@pytest.mark.parametrize("kind", ["flat", "checker", "noise", "bars"])
+def test_fetch_counts_once_a_window(monkeypatch, mode, kind):
+    """The runs leg launches the counts once a window: in runs and auto
+    mode (the DCS verdict pinned False in both packages)
+    fetch_planes_or_runs calls band_run_counts once and, where it ships
+    runs, compact_records once, with those counts and n = the JAX
+    package's slice length (min(keep, nb * w); bars: nb * w); never
+    run_counts or compact_runs.  Its entries and STATS equal the JAX
+    package's."""
+    planes, h, w = (_planes(kind) if kind == "bars"
+                    else _transport_planes(kind))
+    b, nb = len(planes), (h + 5) // 6
+    calls = {"counts": [], "records": []}
+    counts_fn = sixel_runs.band_run_counts
+    records_fn = sixel_runs.compact_records
+
+    def counts_once(p, hh, ww):
+        calls["counts"].append(counts_fn(p, hh, ww))
+        return calls["counts"][-1]
+
+    def records_once(p, hh, ww, counts, n):
+        calls["records"].append((counts, n))
+        return records_fn(p, hh, ww, counts, n)
+
+    def refused(*args):
+        raise AssertionError("the runs leg recounts")
+
+    monkeypatch.setenv("TIMG_TPU_SIXEL_TRANSPORT", mode)
+    monkeypatch.setattr(sixel_runs, "_DCS_FASTER", False)
+    monkeypatch.setattr(jax_runs, "_DCS_FASTER", False)
+    monkeypatch.setattr(sixel_runs, "band_run_counts", counts_once)
+    monkeypatch.setattr(sixel_runs, "compact_records", records_once)
+    monkeypatch.setattr(sixel_runs, "run_counts", refused)
+    monkeypatch.setattr(sixel_runs, "compact_runs", refused)
+    s0, j0 = dict(sixel_runs.STATS), dict(jax_runs.STATS)
+    got = sixel_runs.fetch_planes_or_runs(torch.from_numpy(planes), b, h, w)
+    want = jax_runs.fetch_planes_or_runs(jnp.asarray(planes), b, h, w)
+    ds = {k: sixel_runs.STATS[k] - s0[k] for k in s0}
+    dj = {k: jax_runs.STATS[k] - j0[k] for k in j0}
+    assert ds == dj
+    assert [_entry_kind(e) for e in got] == [_entry_kind(e) for e in want]
+    for g, x in zip(got, want):
+        if isinstance(g, np.ndarray):
+            np.testing.assert_array_equal(g, x)
+        else:
+            np.testing.assert_array_equal(g.records, x.records)
+            np.testing.assert_array_equal(g.band_counts, x.band_counts)
+    assert len(calls["counts"]) == 1
+    runs = ds["frames_runs"] == b
+    assert len(calls["records"]) == runs
+    if runs:
+        counts, n = calls["records"][0]
+        assert counts is calls["counts"][0]
+        assert ds["bytes_shipped"] == 8 * b * n + 4 * b * nb
+        assert n == (nb * w if kind == "bars" else 128)
+    assert runs == (kind == "flat" or (kind, mode) == ("bars", "runs"))
+
+
 TRANSPORT_LINE = re.compile(rb"Device->host sixel transport:[^\n]*")
 
 

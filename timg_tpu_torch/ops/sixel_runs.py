@@ -99,6 +99,13 @@ def compact_runs_plain(planes: torch.Tensor, h: int, w: int, cap: int):
     return torch.where(keep[..., None], records, 0), band_counts
 
 
+def compact_records_plain(planes: torch.Tensor, h: int, w: int, n: int):
+    """Plain version of ``compact_records``: ``compact_runs_plain``'s
+    records cut or zero-padded to [B, n, 2]."""
+    records = compact_runs_plain(planes, h, w, n)[0]
+    return torch.nn.functional.pad(records, (0, 0, 0, n - records.shape[1]))
+
+
 def band_run_counts(planes: torch.Tensor, h: int, w: int) -> torch.Tensor:
     """Column-run count per band, [B, nb] int32, on the planes' device
     (the kernel on CUDA)."""
@@ -121,6 +128,17 @@ def compact_runs(planes: torch.Tensor, h: int, w: int, cap: int):
     if planes.is_cuda:
         return sixel_runs_kernel.compact_runs_cuda(planes, h, w, cap)
     return compact_runs_plain(planes, h, w, cap)
+
+
+def compact_records(planes: torch.Tensor, h: int, w: int,
+                    counts: torch.Tensor, n: int) -> torch.Tensor:
+    """The compaction given the planes' band counts (``band_run_counts``
+    on the same planes, on their device): records [B, n, 2] int32, zero
+    past a frame's count, records at or past n dropped.  The
+    transport's second step: it reuses the decision's counts."""
+    if planes.is_cuda:
+        return sixel_runs_kernel.compact_records_cuda(planes, h, w, counts, n)
+    return compact_records_plain(planes, h, w, n)
 
 
 def default_cap(h: int, w: int) -> int:
@@ -168,17 +186,21 @@ def fetch_planes_or_runs(planes_dev: torch.Tensor, n_frames: int, h: int,
     nb = (h + 5) // 6
     planes_dev = planes_dev[:n_frames]
     if mode in ("auto", "runs") and w < (1 << 15):
-        counts = _host(run_counts(planes_dev, h, w))
+        # one counts launch a window: the decision's band counts also
+        # place the records, and ship beside them
+        band_counts_dev = band_run_counts(planes_dev, h, w)
+        band_counts = _host(band_counts_dev)
+        counts = band_counts.sum(axis=1)
         cap = default_cap(h, w)
         rec_bytes = 8 * int(counts.sum()) + 4 * nb * n_frames
         use_runs = (int(counts.max()) <= cap
                     and (mode == "runs"
                          or 2 * rec_bytes <= h * w * n_frames))
         if use_runs:
-            records, band_counts = compact_runs(planes_dev, h, w, cap)
-            keep = _bucket(int(counts.max()), cap)
-            records = _host(records[:, :keep])
-            band_counts = _host(band_counts)
+            # the JAX package's slice, [:, :keep] of [B, min(cap, nb w)]
+            keep = min(_bucket(int(counts.max()), cap), nb * w)
+            records = _host(compact_records(planes_dev, h, w,
+                                            band_counts_dev, keep))
             STATS["frames_runs"] += n_frames
             STATS["bytes_shipped"] += records.nbytes + band_counts.nbytes
             STATS["bytes_plane_equiv"] += h * w * n_frames

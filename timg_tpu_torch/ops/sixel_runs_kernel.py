@@ -4,8 +4,10 @@ Replace the device side of timg_tpu/ops/sixel_runs.py ``run_counts`` and
 ``compact_runs`` (XLA device ops in the reference; no Pallas kernel):
 ``band_run_counts`` writes the column-run count of each (frame, band),
 ``compact_runs`` the records at each band's scanned offset, in the
-order of the reference's sort without a sort.  Bound by device-memory
-bytes on the H100.  The plain versions are in ops/sixel_runs.py.
+order of the reference's sort without a sort, and zeros to the end of
+the output, so the records are allocated uninitialised.  Bound by
+device-memory bytes on the H100.  The plain versions are in
+ops/sixel_runs.py.
 """
 
 from __future__ import annotations
@@ -76,10 +78,10 @@ def band_run_counts_cuda(planes: torch.Tensor, h: int, w: int):
 
 
 def compact_records_cuda(planes: torch.Tensor, h: int, w: int,
-                         counts: torch.Tensor, cap: int) -> torch.Tensor:
+                         counts: torch.Tensor, n: int) -> torch.Tensor:
     """The compaction kernel alone, given the planes' band counts (from
-    ``band_run_counts_cuda``): records [B, min(cap, nb * w), 2] int32,
-    zero past a frame's count."""
+    ``band_run_counts_cuda``): records [B, n, 2] int32, zero past a
+    frame's count, records at or past n dropped."""
     global COMPACT_LAUNCHES
     planes = check_planes(planes, h, w, "compact_records_cuda")
     b, nb = planes.shape[0], (h + 5) // 6
@@ -87,8 +89,9 @@ def compact_records_cuda(planes: torch.Tensor, h: int, w: int,
             and counts.shape == (b, nb) and counts.is_contiguous()):
         raise ValueError(f"compact_records_cuda takes [{b}, {nb}] int32 "
                          "CUDA band counts")
-    n = min(cap, nb * w)
-    records = torch.zeros((b, n, 2), dtype=torch.int32, device=planes.device)
+    if n < 0:
+        raise ValueError(f"compact_records_cuda: n = {n} < 0")
+    records = torch.empty((b, n, 2), dtype=torch.int32, device=planes.device)
     if b and n:
         _build.check(_lib().timg_compact_runs(
             _ptr(planes), b, h, w, planes.stride(0), planes.stride(1),
@@ -101,4 +104,5 @@ def compact_runs_cuda(planes: torch.Tensor, h: int, w: int, cap: int):
     """The two kernels: (records [B, min(cap, nb * w), 2] int32, zero past
     a frame's count; band_counts [B, nb] int32)."""
     counts = band_run_counts_cuda(planes, h, w)
-    return compact_records_cuda(planes, h, w, counts, cap), counts
+    n = min(cap, (h + 5) // 6 * w)
+    return compact_records_cuda(planes, h, w, counts, n), counts

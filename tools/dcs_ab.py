@@ -103,14 +103,15 @@ def fallback_leg(planes, h: int, w: int, lens) -> tuple:
     return (t1 - t0) * 1e3, (t2 - t1) * 1e3, (t3 - t2) * 1e3
 
 
-def ptxas_lines(log_path: str) -> list:
-    """ptxas' lines for the DCS kernels in an nvcc log."""
+def ptxas_lines(log_path: str, kernel: str = "dcs_bands") -> list:
+    """ptxas' lines for the kernels whose mangled names hold ``kernel``
+    (the DCS kernels unless given) in an nvcc log."""
     if not os.path.exists(log_path):
         return [f"(no {log_path})"]
     lines, take = [], False
     for line in open(log_path):
         if "Compiling entry function" in line:
-            take = "dcs_bands" in line
+            take = kernel in line
         if take and ("Used" in line or "Compiling entry" in line
                      or "spill" in line):
             lines.append(line.strip())
