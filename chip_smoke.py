@@ -74,9 +74,22 @@ only the port (timg_tpu_torch), never jax or the JAX package.  Phases:
    adaptive_reuse, and render_batch_yuv on 8 frames of 1080p 4:2:0 in
    cube; the quarter model at 96x320 and the half model at 96x160 on
    the same RGBA frames.  The payload lists must equal a CPU
-   subprocess's; the stage times of the cube run are printed.
+   subprocess's; the stage times of the cube run are printed;
+5. stills: the port's CLI in this process, as a user runs it at
+   -g160x48 on a pty of 8x16-pixel cells, on files made with PIL from
+   the seed: a 4032x3024 photo-like JPEG in each dither, -pq and -ph,
+   with --auto-crop and -a; a 1920x1080 RGBA PNG with an alpha ramp and
+   a transparent region in blocks with -b none and in cube with a
+   checkerboard; a 24-frame GIF in libsixel and -pq; eight 1080p PNGs
+   in --grid=4x2, cube and -pq; a 3840x1080 panorama scrolled for two
+   windows in libsixel; a 1021x767 still in each forced transport.
+   Each stream must equal the same run on the CPU in a child; then the
+   photo's time to first frame (the whole run, and by legs), a fresh
+   process's start, and the still path's torch ops (stb resize,
+   compose, trim bounds, nearest, scroll) by CUDA events beside their
+   byte bound.
 
-Before each run of phases 3 and 4 every launch counter is set to 0, and
+Before each run of phases 3 to 5 every launch counter is set to 0, and
 just after it every kernel of that run must have launched.  The C
 assembler must have assembled every sixel frame and the C ANSI emitter
 written every block frame (the Python twins none).  The CLI itself is
@@ -1438,6 +1451,464 @@ LIB_KERNELS = {"cube": ("cube_rgb",), "adaptive": ("tree_rgb",),
                "quarter": ("quarter_cells",), "half": ("half_cells",)}
 
 
+# ---------------------------------------------------------------- stills
+# The stills phase drives the port's CLI in this process, as a user runs
+# it, on a pty whose window gives 8x16-pixel cells at -g160x48; the pty
+# answers the CLI's terminal queries at once (a DSR reply to the version
+# query, a sixel-capable DA1, a black background), so no run waits out a
+# query's timeout.
+STILL_WINSIZE = (GRID_H + 2, GRID_W + 2, (GRID_W + 2) * 8,
+                 (GRID_H + 2) * 16)
+STILL_ANSWERS = {b"\033[5n": b"\033[0n", b"\033[c": b"\033[?62;4c",
+                 b"\033]11;?": b"\033]11;rgb:0000/0000/0000\033\\"}
+STILL_FLAGS = ["--debug-no-frame-delay", f"-g{GRID_W}x{GRID_H}"]
+GRID_FILES = [f"grid{i}.png" for i in range(8)]
+# name -> (flags, inputs, environment of the run)
+STILL_CASES = {
+    "photo cube": (["-ps", "--dither=cube"], ["photo.jpg"], {}),
+    "photo adaptive": (["-ps", "--dither=adaptive"], ["photo.jpg"], {}),
+    "photo libsixel": (["-ps", "--dither=libsixel"], ["photo.jpg"], {}),
+    "photo pq": (["-pq"], ["photo.jpg"], {}),
+    "photo ph": (["-ph"], ["photo.jpg"], {}),
+    "alpha pq none": (["-pq", "-b", "none"], ["alpha.png"], {}),
+    "alpha ph none": (["-ph", "-b", "none"], ["alpha.png"], {}),
+    "alpha cube checker": (["-ps", "--dither=cube", "-b", "black", "-B",
+                            "gray"], ["alpha.png"], {}),
+    "gif libsixel": (["-ps", "--dither=libsixel", "--loops=1"],
+                     ["anim.gif"], {}),
+    "gif pq": (["-pq", "--loops=1"], ["anim.gif"], {}),
+    "grid cube": (["-ps", "--dither=cube", "--grid=4x2"], GRID_FILES, {}),
+    "grid cube unbatched": (["-ps", "--dither=cube", "--grid=4x2"],
+                            GRID_FILES, {"TIMG_TPU_NO_GRID_BATCH": "1"}),
+    "grid pq": (["-pq", "--grid=4x2"], GRID_FILES, {}),
+    "scroll libsixel": (["-ps", "--dither=libsixel", "--scroll=10",
+                         "-t0.25"], ["panorama.png"], {}),
+    "odd plane": (["-ps", "--dither=cube"], ["odd.png"],
+                  {"TIMG_TPU_SIXEL_TRANSPORT": "plane"}),
+    "odd runs": (["-ps", "--dither=cube"], ["odd.png"],
+                 {"TIMG_TPU_SIXEL_TRANSPORT": "runs"}),
+    "odd dcs": (["-ps", "--dither=cube"], ["odd.png"],
+                {"TIMG_TPU_SIXEL_TRANSPORT": "dcs"}),
+    "photo auto-crop": (["-pq", "--auto-crop"], ["photo.jpg"], {}),
+    "photo nearest": (["-ps", "--dither=cube", "-a"], ["photo.jpg"], {}),
+}
+# frames each case writes (an image each; the GIF's 24; the scroll's 26)
+STILL_FRAMES = {"gif libsixel": 24, "gif pq": 24, "grid cube": 8,
+                "grid cube unbatched": 8, "grid pq": 8,
+                "scroll libsixel": 26}
+STILL_KERNELS = ("dither", "tree", "bucket", "table", "quarter_cells",
+                 "half_cells", "run_counts")
+N_STILL_CHILDREN = 4        # CPU children sharing the cases
+
+
+def still_inputs(d: str) -> None:
+    """The stills phase's files, made with PIL from the seed: a 4032x3024
+    photo-like JPEG (q 90), a 1920x1080 RGBA PNG with an alpha ramp and a
+    fully transparent region, a 480x270 GIF of 24 frames, eight 1920x1080
+    PNGs for the grid, a 3840x1080 panorama and a 1021x767 still of flat
+    cube colours (every transport carries it)."""
+    import numpy as np
+    from PIL import Image
+
+    rng = np.random.default_rng(SEED + 14)
+
+    def scene(h, w, k):
+        yy, xx = np.mgrid[0:h, 0:w]
+        img = np.empty((h, w, 3), np.uint8)
+        for c in range(3):
+            img[..., c] = (xx * (90 + 40 * c) // w + yy * (120 - 30 * c) // h
+                           + 37 * k + 50 * c
+                           + rng.integers(0, 20, (h, w))) % 256
+        img[h // 4:h // 2, w // 5:w // 3] = (20 + 30 * k) % 256   # a wall
+        return img
+
+    Image.fromarray(scene(3024, 4032, 0)).save(
+        os.path.join(d, "photo.jpg"), quality=90)
+    rgba = np.dstack([scene(1080, 1920, 1), np.full((1080, 1920), 255,
+                                                    np.uint8)])
+    rgba[200:800, 300:1500, 3] = np.linspace(254, 0, 1200).astype(np.uint8)
+    rgba[850:1000, 100:700, 3] = 0
+    Image.fromarray(rgba, "RGBA").save(os.path.join(d, "alpha.png"),
+                                       compress_level=1)
+    base = scene(270, 480, 2)
+    frames = []
+    for i in range(24):
+        f = base.copy()
+        f[:, 20 * i:20 * i + 40] = (255 - 10 * i, 8 * i, 128)
+        frames.append(Image.fromarray(f))
+    frames[0].save(os.path.join(d, "anim.gif"), save_all=True,
+                   append_images=frames[1:], duration=40, loop=0)
+    for i in range(8):
+        Image.fromarray(scene(1080, 1920, 3 + i)).save(
+            os.path.join(d, f"grid{i}.png"), compress_level=1)
+    Image.fromarray(scene(1080, 3840, 11)).save(
+        os.path.join(d, "panorama.png"), compress_level=1)
+    odd = np.zeros((767, 1021, 3), np.uint8)
+    odd[:, :, 0] = (np.arange(767) // 64 % 6 * 51)[:, None]
+    odd[:, 400:700, 2] = 255
+    odd[300:500, 100:900, 1] = 255
+    Image.fromarray(odd).save(os.path.join(d, "odd.png"), compress_level=1)
+
+
+def cli_stream(argv: list, out_path: str) -> bytes:
+    """One run of the port's CLI in this process with its stdout on a
+    pty of STILL_WINSIZE (the stream to ``out_path``); returns the
+    stream."""
+    import fcntl
+    import pty
+    import struct
+    import termios
+    import threading
+
+    from timg_tpu_torch.cli import main
+
+    master, slave = pty.openpty()
+    fcntl.ioctl(slave, termios.TIOCSWINSZ, struct.pack("HHHH",
+                                                       *STILL_WINSIZE))
+
+    def pump():
+        try:
+            while True:
+                data = os.read(master, 4096)
+                if not data:
+                    return
+                for trigger, reply in STILL_ANSWERS.items():
+                    if trigger in data:
+                        os.write(master, reply)
+        except OSError:
+            return
+
+    threading.Thread(target=pump, daemon=True).start()
+    sys.stdout.flush()
+    saved = os.dup(1)
+    try:
+        os.dup2(slave, 1)
+        rc = main(argv + ["-o", out_path])
+    finally:
+        os.dup2(saved, 1)
+        os.close(saved)
+        os.close(slave)
+        os.close(master)
+    if rc != 0:
+        fail(f"the CLI exited {rc} on {' '.join(argv)}")
+    with open(out_path, "rb") as f:
+        return f.read()
+
+
+def still_argv(name: str, d: str) -> list:
+    flags, inputs, _ = STILL_CASES[name]
+    return STILL_FLAGS + flags + [os.path.join(d, f) for f in inputs]
+
+
+@contextlib.contextmanager
+def still_env(name: str):
+    """The environment of one STILL_CASES run, while open."""
+    env = STILL_CASES[name][2]
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for key in env:
+            os.environ.pop(key, None)
+
+
+def still_streams_cpu(d: str, names: list) -> None:
+    """Child of the stills phase: each named case on the CPU, its stream
+    to ``<d>/<name>.cpu``."""
+    for name in names:
+        with still_env(name):
+            cli_stream(still_argv(name, d), os.path.join(d, name + ".cpu"))
+
+
+def still_op_times(dev, d: str) -> None:
+    """Device times of the still path's torch ops (CUDA events) beside
+    their byte bound (each input byte read once, each output written
+    once), at the phase's geometries."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from timg_tpu_torch.ops import autocrop
+    from timg_tpu_torch.ops.compose import alpha_compose_background
+    from timg_tpu_torch.ops.resize import resize_batch, resize_nearest
+    from timg_tpu_torch.sources import scroll
+
+    photo = np.asarray(Image.open(os.path.join(d, "photo.jpg")).convert(
+        "RGBA"))
+    full = torch.from_numpy(photo[None]).to(dev)               # 4032x3024
+    drafted = full[:, ::2, ::2].contiguous()                    # 2016x1512
+    rgba = np.asarray(Image.open(os.path.join(d, "alpha.png")))
+    r720 = resize_batch(torch.from_numpy(rgba[None]).to(dev), 720, 1280)
+    pano = torch.from_numpy(np.asarray(Image.open(os.path.join(
+        d, "panorama.png")).convert("RGBA"))).to(dev)
+    pano = resize_batch(pano[None], 768, 2730)[0]
+    grid = full.new_zeros((8, 1080, 1920, 4))
+    rows = [
+        ("resize_batch 2016x1512 -> 1024x768 (the drafted photo's size)",
+         lambda: resize_batch(drafted, 768, 1024),
+         drafted.numel() + 768 * 1024 * 4),
+        ("resize_batch 4032x3024 -> 1024x768 (the photo undrafted)",
+         lambda: resize_batch(full, 768, 1024), full.numel() + 768 * 1024 * 4),
+        ("resize_batch 8 x 1920x1080 -> 320x180 (the grid)",
+         lambda: resize_batch(grid, 180, 320),
+         8 * (1080 * 1920 + 180 * 320) * 4),
+        ("compose 1280x720, checkerboard (the alpha PNG)",
+         lambda: alpha_compose_background(r720, (0, 0, 0, 255),
+                                          (128, 128, 128, 255), 16, 8),
+         2 * r720.numel()),
+        ("trim bounds 4032x3024 (--auto-crop)",
+         lambda: autocrop._trim_bounds(full[0]), full.numel()),
+        ("resize_nearest 4032x3024 -> 1024x768 (-a)",
+         lambda: resize_nearest(full, 768, 1024), 2 * 768 * 1024 * 4),
+        ("scroll_frames 16 x 1280x768 of 2730x768",
+         lambda: scroll.scroll_frames(pano, 1280, 768, 1, 0, 0, 16),
+         2 * 16 * 1280 * 768 * 4),
+    ]
+    for what, fn, nbytes in rows:
+        ms = cuda_ms(fn, 5)
+        b = bound(nbytes, 0)["bound_ms"]
+        print(f"stills: torch op {what}: {ms:.6f} ms (CUDA events, mean of "
+              f"5), byte bound {b:.6f} ms ({nbytes} B), {b / ms:.1%} of it")
+
+
+def still_legs(dev, d: str) -> None:
+    """The photo's first frame split into its legs (host clock,
+    synchronized; device legs also by CUDA events inside): decode with
+    the JPEG draft, H2D, stb resize, the compose's alpha check (the
+    photo is opaque, so no blend runs), then for cube the dither, the
+    transport and the C assembly, for libsixel (the default) the fetch of
+    the frame, libsixel's C quantizer and the assembly."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from timg_tpu_torch.native import runtime
+    from timg_tpu_torch.ops.resize import resize_batch
+    from timg_tpu_torch.ops.sixel_kernel import fs_dither_cube_fused
+    from timg_tpu_torch.ops.sixel_np import cube_palette
+    from timg_tpu_torch.ops.sixel_dcs import SixelDcs
+    from timg_tpu_torch.ops.sixel_runs import SixelRuns, fetch_planes_or_runs
+    from timg_tpu_torch.render.sixel_render import (encode_sixel_stream,
+                                                    encode_sixel_stream_dcs,
+                                                    encode_sixel_stream_runs)
+
+    def clock(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    for mode in ("libsixel", "cube"):
+        legs = {}
+
+        def decode():
+            img = Image.open(os.path.join(d, "photo.jpg"))
+            img.draft(None, (1024, 768))
+            return np.asarray(img.convert("RGBA"))
+
+        raw, legs["decode"] = clock(decode)
+        x, legs["h2d"] = clock(lambda: torch.from_numpy(raw[None]).to(dev))
+        r, legs["resize"] = clock(lambda: resize_batch(x, 768, 1024))
+        _, legs["compose"] = clock(lambda: bool((r[..., 3] != 255).any()))
+        if mode == "cube":
+            words = r.view(torch.int32)[..., 0]
+            idx, legs["dither"] = clock(
+                lambda: fs_dither_cube_fused(words, 768, 1024, out_u8=True))
+            entries, legs["transport"] = clock(
+                lambda: fetch_planes_or_runs(idx, 1, 768, 1024))
+            encode = (encode_sixel_stream_runs
+                      if isinstance(entries[0], SixelRuns) else
+                      encode_sixel_stream_dcs
+                      if isinstance(entries[0], SixelDcs)
+                      else encode_sixel_stream)
+            _, legs["assembly"] = clock(
+                lambda: encode(entries[0], cube_palette()))
+        else:
+            host, legs["transport"] = clock(lambda: r[0].cpu().numpy())
+            (idx, pal), legs["dither"] = clock(
+                lambda: runtime.libsixel_quant(host))
+            _, legs["assembly"] = clock(
+                lambda: encode_sixel_stream(idx, pal))
+        total = sum(legs.values())
+        print(f"stills: photo -ps --dither={mode}, first frame by legs "
+              f"(host clock, synchronized, ms): " + ", ".join(
+                  f"{k} {v:.3f}" for k, v in legs.items())
+              + f"; sum {total:.3f}")
+
+
+def process_start_ms() -> float:
+    """A fresh process's torch import and CUDA context (host clock)."""
+    t0 = time.perf_counter()
+    subprocess.run([sys.executable, "-c",
+                    "import torch; torch.zeros(1, device='cuda'); "
+                    "torch.cuda.synchronize()"], check=True, timeout=300)
+    return (time.perf_counter() - t0) * 1e3
+
+
+# the still path's torch ops, counted by call in the stills phase:
+# name -> (module, function)
+STILL_OPS = {"resize_batch": ("timg_tpu_torch.ops.resize", "resize_batch"),
+             "resize_nearest": ("timg_tpu_torch.ops.resize",
+                                "resize_nearest"),
+             "compose": ("timg_tpu_torch.ops.compose",
+                         "alpha_compose_background"),
+             "trim_bounds": ("timg_tpu_torch.ops.autocrop", "_trim_bounds"),
+             "scroll_frames": ("timg_tpu_torch.sources.scroll",
+                               "scroll_frames")}
+
+
+@contextlib.contextmanager
+def counted_ops(calls: dict):
+    """While open, each STILL_OPS function adds its calls to ``calls``
+    (their callers look them up in their modules at each call)."""
+    import importlib
+
+    saved = []
+    for name, (module, attr) in STILL_OPS.items():
+        owner = importlib.import_module(module)
+        fn = getattr(owner, attr)
+
+        def counted(*args, _fn=fn, _name=name, **kwargs):
+            calls[_name] = calls.get(_name, 0) + 1
+            return _fn(*args, **kwargs)
+
+        saved.append((owner, attr, fn))
+        setattr(owner, attr, counted)
+    try:
+        yield
+    finally:
+        for owner, attr, fn in saved:
+            setattr(owner, attr, fn)
+
+
+def still_run(name: str, d: str, streams: dict) -> int:
+    """One STILL_CASES run on the card, its stream into ``streams``,
+    checked for its sixel images or its rows of cells and, in a forced
+    transport, that the transport carried the frame; returns the block
+    frames it wrote (0 in sixel)."""
+    import torch
+
+    from timg_tpu_torch.ops import sixel_runs
+
+    flags, _, env = STILL_CASES[name]
+    transport = env.get("TIMG_TPU_SIXEL_TRANSPORT")
+    s0 = dict(sixel_runs.STATS)
+    t0 = time.perf_counter()
+    with still_env(name):
+        streams[name] = cli_stream(still_argv(name, d),
+                                   os.path.join(d, name + ".cuda"))
+    torch.cuda.synchronize()
+    t_run = (time.perf_counter() - t0) * 1e3
+    moved = {k: sixel_runs.STATS[k] - s0[k] for k in s0}
+    n = STILL_FRAMES.get(name, 1)
+    print(f"stills: {name}: CLI run {t_run:.1f} ms (host clock, in this "
+          f"process), {len(streams[name])} bytes, {n} frames, transport "
+          f"{moved}")
+    if transport and moved[f"frames_{transport}"] != 1:
+        fail(f"stills {name}: the {transport} transport moved {moved}")
+    if "-ps" in flags:
+        got = streams[name].count(b"\033Pq")
+        if got != n:
+            fail(f"stills {name}: {got} sixel images, expected {n}")
+        return 0
+    if b"\033[0m\n" not in streams[name]:
+        fail(f"stills {name} wrote no row of cells")
+    return n
+
+
+def stills_phase(dev, reset_counts, read_counts, launches: dict) -> None:
+    """The port's CLI on stills, on the card: every STILL_CASES run's
+    stream must equal the same run on the CPU in a child; each kernel of
+    STILL_KERNELS must have launched, the C assembler assembled every
+    sixel frame it was given and the C emitter written every block
+    frame."""
+    from timg_tpu_torch.render import ansi, sixel_render
+
+    d = tempfile.mkdtemp(prefix="timg_stills_")
+    t_phase = time.perf_counter()
+    still_inputs(d)
+    print(f"stills: inputs made in {time.perf_counter() - t_phase:.2f} s")
+    env = dict(os.environ, TIMG_TPU_TORCH_DEVICE="cpu",
+               CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="2")
+    names = list(STILL_CASES)
+    me = os.path.abspath(__file__)
+    children = [subprocess.Popen(
+        [sys.executable, me, "--still-streams", d,
+         json.dumps(names[k::N_STILL_CHILDREN])], env=env, cwd=REPO,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+        for k in range(N_STILL_CHILDREN)]
+    try:
+        assembled0 = dict(sixel_render.ASSEMBLED)
+        emitted0 = dict(ansi.EMITTED)
+        block_frames = 0
+        streams = {}
+        reset_counts()
+        op_calls = {}
+        with counted_ops(op_calls):
+            for name in names:
+                block_frames += still_run(name, d, streams)
+        counts = read_counts()
+        print(f"stills: launches {counts}; torch op calls {op_calls}")
+        for k in STILL_KERNELS:
+            if counts[k] <= 0:
+                fail(f"stills: the still path launched no {k} kernel")
+        for k in counts:
+            launches[k] += counts[k]
+        assembled = {k: sixel_render.ASSEMBLED[k] - assembled0[k]
+                     for k in assembled0}
+        emitted = {k: ansi.EMITTED[k] - emitted0[k] for k in emitted0}
+        print(f"stills: the C assembler assembled {assembled['c']} frames, "
+              f"the Python twin {assembled['python']}; the C ANSI emitter "
+              f"wrote {emitted['c']} frames, the Python twin "
+              f"{emitted['python']}")
+        if assembled["python"] or not assembled["c"]:
+            fail("stills: a sixel frame was not assembled by the C "
+                 "assembler")
+        if emitted["python"] or emitted["c"] != block_frames:
+            fail(f"stills: of {block_frames} block frames the C emitter "
+                 f"wrote {emitted['c']}, the Python twin "
+                 f"{emitted['python']}")
+        for mode in ("libsixel", "cube"):
+            runs = []
+            for _ in range(2):
+                t0 = time.perf_counter()
+                cli_stream(still_argv(f"photo {mode}", d),
+                           os.path.join(d, "again.cuda"))
+                runs.append((time.perf_counter() - t0) * 1e3)
+            print(f"stills: photo -ps --dither={mode}: time to first frame, "
+                  f"the whole CLI run in a warm process (host clock): "
+                  f"{runs[0]:.1f} and {runs[1]:.1f} ms")
+        print(f"stills: a fresh process's torch import and CUDA context: "
+              f"{process_start_ms():.1f} ms (host clock)")
+        still_legs(dev, d)
+        still_op_times(dev, d)
+        t_card = time.perf_counter() - t_phase
+        for child in children:
+            out, err = child.communicate(timeout=900)
+            if child.returncode != 0:
+                fail("stills: CPU reference run failed:\n"
+                     + err.decode(errors="replace")[-3000:])
+        for name in names:
+            with open(os.path.join(d, name + ".cpu"), "rb") as f:
+                cpu = f.read()
+            if cpu != streams[name]:
+                fail(f"stills {name}: cuda stream ({len(streams[name])} B) "
+                     f"!= cpu stream ({len(cpu)} B): "
+                     + first_difference(streams[name], cpu))
+        print(f"stills: every cuda stream == its cpu stream; the phase took "
+              f"{time.perf_counter() - t_phase:.1f} s (host clock; the "
+              f"card's part {t_card:.1f} s, then waiting for the CPU "
+              "children)")
+    finally:
+        for child in children:
+            if child.poll() is None:
+                child.kill()
+                child.wait()
+        import shutil
+        shutil.rmtree(d, ignore_errors=True)
+
+
 def build_native():
     """The port's native helper: the C sixel assembler must build; the
     libav video decoder may not (no libav on the host)."""
@@ -1460,6 +1931,11 @@ def main() -> int:
         sys.stdout.buffer.write(main_path_stream(
             sys.argv[2], int(sys.argv[3]),
             content=sys.argv[4] if len(sys.argv) == 5 else "seeded"))
+        return 0
+    if len(sys.argv) == 4 and sys.argv[1] == "--still-streams":
+        # child of the stills phase: its share of the cases on the CPU
+        sys.path.insert(0, REPO)
+        still_streams_cpu(sys.argv[2], json.loads(sys.argv[3]))
         return 0
     if len(sys.argv) == 2 and sys.argv[1] == "--library-payloads":
         # child of the library phase: every run on the CPU
@@ -1713,6 +2189,8 @@ def main() -> int:
             if child.poll() is None:
                 child.kill()
                 child.wait()
+
+    stills_phase(dev, reset_counts, read_counts, launches)
 
     entries = [
         ("yuv420_to_rgba", "convert", "yuv420.cu", "timg_tpu/ops/yuv.py:109"),

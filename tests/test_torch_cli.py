@@ -4,7 +4,7 @@ The same y4m clip goes through both CLIs under a scripted pty; the sixel
 streams must be byte-identical, in every --dither mode, and so must the
 quarter- and half-block streams.  The port never
 imports jax, which a subprocess run shows, and it refuses what it does
-not run yet.
+not run yet (stills: tests/test_torch_stills_cli.py).
 """
 
 import os
@@ -176,11 +176,13 @@ def test_cli_refuses_what_is_not_ported(tmp_path, capsys, flags, what):
 
 
 def test_cli_refuses_an_image(native, tmp_path, capsys):
-    from PIL import Image
-
+    """Stills are ported (tests/test_torch_stills_cli.py); an image that
+    only an unported decoder of the JAX package opens (here a PDF) is
+    refused with that decoder's name."""
     from timg_tpu_torch.cli import main
-    png = tmp_path / "s.png"
-    Image.new("RGB", (32, 24), (10, 120, 200)).save(png)
-    rc = main(ARGV + [str(png), "-o", str(tmp_path / "x.out")])
+    pdf = tmp_path / "s.pdf"
+    pdf.write_bytes(b"%PDF-1.4\n%%EOF\n")
+    rc = main(ARGV + [str(pdf), "-o", str(tmp_path / "x.out")])
     assert rc != 0
-    assert "not yet ported" in capsys.readouterr().err
+    err = capsys.readouterr().err
+    assert "not yet ported" in err and "PDF" in err

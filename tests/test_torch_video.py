@@ -185,10 +185,12 @@ def test_device_frame_materializes_one_frame():
 def test_canvas_assembles_primed_planes():
     """The canvas pops the primed plane and writes one sixel image, equal
     to assembling that plane with the cube palette; a frame that was not
-    primed is refused."""
+    primed takes the single-frame route (the still path's), and writes
+    the JAX canvas's bytes."""
     from timg_tpu.ops.sixel_np import cube_palette
     from timg_tpu.options import SixelOptions
     from timg_tpu.render.sequencer import SeqType
+    from timg_tpu.render.sixel_render import SixelCanvas as JaxCanvas
     from timg_tpu.render.sixel_render import encode_sixel_stream
     from timg_tpu_torch.render.sixel_render import SixelCanvas
 
@@ -211,9 +213,14 @@ def test_canvas_assembles_primed_planes():
     out = b"".join(sink.data)
     assert out.count(b"\033Pq") == 1
     assert encode_sixel_stream(plane, cube_palette()) in out
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        canvas.send(0, 0, np.asarray(frames[0]).copy(),
-                    SeqType.FRAME_IMMEDIATE)
+    unprimed = np.asarray(frames[0]).copy()
+    want = Sink()
+    JaxCanvas(want, SixelOptions(), opts, dither="cube").send(
+        0, 0, unprimed, SeqType.FRAME_IMMEDIATE)
+    sink.data.clear()
+    canvas.send(0, 0, unprimed, SeqType.FRAME_IMMEDIATE)
+    assert b"".join(sink.data) == b"".join(want.data)
+    assert b"".join(sink.data).count(b"\033Pq") == 1
 
 
 def _block_opts(cell_x):

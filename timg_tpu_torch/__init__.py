@@ -10,20 +10,33 @@ terminal queries, the canvas/sequencer/renderer, the numpy mirrors, the
 libsixel palette, the native C helper) are its own copies, with only
 their imports rewritten.  tests/test_torch_isolation.py holds it to that.
 
-Slices ported so far: the sustained sixel video loop on 4:2:0 video,
-``-p sixel`` with every ``--dither`` mode (cube, libsixel, adaptive,
-auto); the library API's sixel model (``models.get("sixel")``).
+Slices ported so far: stills and animations (QOI and what Pillow
+decodes, with the grid contact sheet, auto-crop, ``-a`` and scroll) and
+the sustained loop on 4:2:0 video, in ``-p sixel`` with every
+``--dither`` mode (cube, libsixel, adaptive, auto) and in ``-p quarter``
+/ ``-p half``; the library API's sixel and block models
+(``models.get("sixel"|"quarter"|"half")``).  Decode runs on the host,
+everything after it on the device, small stills included.
 
 Layer map (entry point down to the device):
 
   cli.py                 -- flag surface & session orchestration
-                            (twin of timg_tpu/cli.py, sixel video only)
+                            (twin of timg_tpu/cli.py; the grid collector)
   models/                -- library API: SixelModel (render_batch,
-                            render_batch_yuv)
-  sources/base.py        -- source factory (video only so far)
+                            render_batch_yuv), the block models
+  sources/base.py        -- source factory: QOI, Pillow, video; names the
+                            JAX package's decoders not yet ported
+  sources/pil_source.py  -- Pillow decode (JPEG draft, EXIF, ICO, GIF
+                            salvage) -> resize + compose on the device
+                            -> the RGBA windows' planes
+  sources/qoi_source.py  -- QOI decode (numpy), then pil_source's path
+  sources/batch.py       -- grid contact sheet: one resize a geometry
+  sources/scroll.py      -- scroll windows as rolls on the device
   sources/video_source.py-- libav decode -> 8-frame YUV windows
   render/plane_cache.py  -- per-window device flow: convert -> resize ->
-                            dither (cube | libsixel | adaptive) -> fetch;
+                            dither (cube | libsixel | adaptive) -> fetch,
+                            or the block cells; the RGBA windows of
+                            stills, animations and scroll;
                             DeviceFrame placeholders, PlaneCache
   render/sixel_render.py -- SixelCanvas; C sixel assembly (native/) or
                             its Python twin, from planes or run records;
@@ -39,8 +52,11 @@ Layer map (entry point down to the device):
   ops/yuv.py             -- BT.601 4:2:0 -> RGBA words (torch integer ops)
   ops/pipeline.py        -- resize_compose (library API)
   ops/resize.py          -- video tap tables + plain torch resize;
-                            stb-exact RGBA resize (torch ops)
+                            stb-exact RGBA resize, nearest (torch ops)
   ops/compose.py         -- alpha compose against the background
+  ops/exact.py           -- the exact floor root of compose and blocks
+  ops/autocrop.py        -- auto-crop bounds (torch reductions)
+  ops/blocks.py          -- block cells (CUDA csrc/block_cells.cu)
   ops/resize_kernel.py   -- CUDA resize kernels (csrc/resize_words.cu;
                             csrc/resize_passes.cu where no tile fits)
   ops/sixel.py           -- cube constants; 3-channel dither entry points
@@ -55,7 +71,9 @@ Layer map (entry point down to the device):
   ops/_build.py          -- nvcc build of csrc/ into one ctypes library
   ops/backend.py         -- the process's torch.device
   native/runtime.py      -- g++ build of native/*.cc: C sixel assembler,
-                            libav video decoder (where libav exists)
+                            C ANSI emitter, libsixel's quantizer and
+                            palette; libav video decoder (where libav
+                            exists)
 """
 
 __version__ = "0.1.0"

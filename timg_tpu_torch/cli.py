@@ -3,11 +3,16 @@
 Same flag surface, option resolution, pacing and exit codes as the JAX
 package's CLI; the sources and the canvas are the port's, and the
 jax-only parts (compile cache, forced-host pinning, JAX profiler hook,
-wedged-device exit) are gone.  The ported slices run opaque 4:2:0
-video in ``-p sixel`` with every ``--dither`` mode (cube, libsixel,
-adaptive, and auto, which resolves to one of the latter two as the JAX
-CLI resolves it) and in ``-p quarter`` / ``-p half``; anything else
-(kitty, iTerm2, images) exits with a "not yet ported" message.
+wedged-device exit) are gone.  The ported slices show stills and
+animations (QOI and everything Pillow decodes: PNG, JPEG, GIF, BMP,
+WebP, TIFF, ICO; with ``--grid``, ``--auto-crop``, ``-a``, ``--scroll``,
+``-U``/``-W``, ``--title`` and ``--frames``) and opaque 4:2:0 video, in
+``-p sixel`` with every ``--dither`` mode (cube, libsixel, adaptive, and
+auto, which resolves to one of the latter two as the JAX CLI resolves
+it) and in ``-p quarter`` / ``-p half``.  Decode runs on the host and
+everything after it on the device, small stills included.  Kitty,
+iTerm2, ``--resample=sws*``, ``--serve``, ``--devices`` and the unported
+decoders exit with a "not yet ported" message.
 The device is ``cuda`` unless TIMG_TPU_TORCH_DEVICE=cpu.
 """
 
@@ -123,7 +128,7 @@ def append_to_filelist(filelist_file: str, relative_to_filelist: bool,
 
 def _not_ported(what: str) -> int:
     print(f"timg-tpu-torch: {what} is not yet ported to timg_tpu_torch "
-          "(this build runs -p sixel on 4:2:0 video)",
+          "(this build runs -p sixel, -p quarter and -p half)",
           file=sys.stderr)
     return EXIT_PARAMETER_ERROR
 
@@ -438,6 +443,15 @@ def main(argv: Optional[List[str]] = None) -> int:
     # ---- async decode fan-out (timg_tpu/cli.py:509-553) ----
     from timg_tpu_torch.sources.base import create_source
 
+    # Contact sheets batch same-geometry cells across *images* through
+    # one device dispatch (sources/batch.py). Scroll mode pans raw
+    # frames and is excluded.
+    if ((present.grid_cols > 1 or present.grid_rows > 1)
+            and len(filelist) > 1 and not display.scroll_animation
+            and not os.environ.get("TIMG_TPU_NO_GRID_BATCH")):
+        from timg_tpu_torch.sources.batch import GridBatchCollector
+        display.batch_collector = GridBatchCollector(len(filelist))
+
     thread_count = args.threads or _default_thread_count()
     pool = ThreadPoolExecutor(
         max_workers=max(1, min(thread_count, len(filelist) + 1)))
@@ -447,14 +461,23 @@ def main(argv: Optional[List[str]] = None) -> int:
 
     def load(filename: str):
         nonlocal load_failed
-        if interrupt_received:
-            return None
-        src, err = create_source(
-            filename, display, frame_offset, max_frames,
-            attempt_image_loading=not args.video_only,
-            attempt_video_loading=not args.image_only,
-        )
+        try:
+            if interrupt_received:
+                return None
+            src, err = create_source(
+                filename, display, frame_offset, max_frames,
+                attempt_image_loading=not args.video_only,
+                attempt_video_loading=not args.image_only,
+            )
+        finally:
+            # the grid collector flushes once every decode task has
+            # reported in -- success, failure or interrupt alike
+            if display.batch_collector is not None:
+                display.batch_collector.arrive()
         if src is None:
+            # Every factory failure is a read error even when the
+            # message is empty (silently-undecodable file), as the
+            # reference (timg.cc:960-963).
             load_failed = True
             if err:
                 errors.append(err)

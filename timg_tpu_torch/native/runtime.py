@@ -5,8 +5,10 @@ Two libraries, each from one source in this directory, built with g++
 into ``build/`` (git-ignored) and rebuilt when their source is newer:
 
 - ``libtimg_native.so`` from ``timg_native.cc`` alone: the C sixel
-  assembler, the C ANSI block emitter (``timg_ansi_emit``) and the
-  polyphase resize executor ``ops/resize_np.py`` calls.  It needs only standard headers, so it builds on any host
+  assembler, the C ANSI block emitter (``timg_ansi_emit``), the
+  polyphase resize executor ``ops/resize_np.py`` calls, and libsixel's
+  quantizer (``libsixel_quant``, a one-shot still's palette and dither)
+  and palette (``libsixel_palette``, each frame of an animation).  It needs only standard headers, so it builds on any host
   with a C++17 compiler;
 - ``libtimg_video.so`` from ``timg_video.cc``: the libav video decoder.
   It builds only where the libav headers and libraries exist; elsewhere
@@ -119,6 +121,14 @@ def _bind_native(lib: ctypes.CDLL) -> ctypes.CDLL:
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
         ctypes.c_int, ctypes.c_int]
+    lib.timg_libsixel_quant.restype = ctypes.c_int
+    lib.timg_libsixel_quant.argtypes = [
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_long,
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+    lib.timg_libsixel_palette.restype = ctypes.c_int
+    lib.timg_libsixel_palette.argtypes = [
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_long,
+        ctypes.c_int, ctypes.c_void_p]
     return lib
 
 
@@ -187,3 +197,60 @@ def resize_polyphase(frames, out_h: int, out_w: int, starts_v, coeffs_v,
     if rc != 0:
         return None
     return out
+
+
+def _rgba(frame):
+    """[H, W, 4] uint8 with 4-byte pixels (3-channel input padded)."""
+    import numpy as np
+
+    frame = np.asarray(frame)
+    if frame.shape[2] == 4 and frame.strides[1] == 4 \
+            and frame.strides[2] == 1 and frame.dtype == np.uint8:
+        return frame
+    rgba = np.zeros(frame.shape[:2] + (4,), dtype=np.uint8)
+    rgba[..., :min(frame.shape[2], 4)] = frame[..., :4]
+    return rgba
+
+
+def libsixel_quant(frame_rgba, reqcolors: int = 256):
+    """libsixel's quantizer on one frame (quant.c's histogram, median
+    cut and cached Floyd-Steinberg; timg_native.cc:timg_libsixel_quant).
+    frame_rgba: [H, W, 4] (or [H, W, 3]) uint8.  Returns (indices [H, W]
+    uint8, palette [ncolors, 3] uint8), or None when the native library
+    is unavailable (callers then run ops/libsixel_quant.py's oracle)."""
+    import numpy as np
+
+    lib = load()
+    if lib is None:
+        return None
+    frame = _rgba(frame_rgba)
+    h, w = frame.shape[:2]
+    pal = np.zeros((reqcolors, 3), dtype=np.uint8)
+    idx = np.zeros((h, w), dtype=np.uint8)
+    rc = lib.timg_libsixel_quant(frame.ctypes.data, h, w, frame.strides[0],
+                                 reqcolors, pal.ctypes.data,
+                                 idx.ctypes.data)
+    if rc < 0:
+        return None
+    return idx, pal[:rc & 0xFFFF]
+
+
+def libsixel_palette(frame_rgba, reqcolors: int = 256):
+    """libsixel's palette of one frame (histogram and median cut;
+    timg_native.cc:timg_libsixel_palette).  Returns (palette [ncolors, 3]
+    uint8, diffuse bool), or None when the native library is
+    unavailable."""
+    import numpy as np
+
+    lib = load()
+    if lib is None:
+        return None
+    frame = _rgba(frame_rgba)
+    h, w = frame.shape[:2]
+    pal = np.zeros((reqcolors, 3), dtype=np.uint8)
+    rc = lib.timg_libsixel_palette(frame.ctypes.data, h, w,
+                                   frame.strides[0], reqcolors,
+                                   pal.ctypes.data)
+    if rc < 0:
+        return None
+    return pal[:rc & 0xFFFF], bool(rc >> 16)

@@ -13,8 +13,8 @@ csrc/block_cells.cu), a CPU tensor through the plain PyTorch version
 below, which follows timg_tpu/ops/blocks.py op for op.  The JAX package
 emulates a correctly rounded ``/3`` and ``sqrt`` (its ops/exact.py)
 because the TPU's are approximate; torch's ``/`` rounds correctly on the
-CPU, so it serves as it is.  The repack's root is an integer
-bisection, floor(sqrt(v)) on exact squares, which equals the
+CPU, so it serves as it is.  The repack's root is ops/exact.py's
+integer bisection, floor(sqrt(v)) on exact squares, which equals the
 reference's truncated ``sqrtf`` on every value the repack is fed
 (test_plain_repack_root_is_exact_on_the_repack_lattice): ``torch.sqrt``
 on the CPU now and then returned a root too low for one cell's three
@@ -48,6 +48,7 @@ import torch
 
 from timg_tpu_torch.ops import blocks_kernel
 from timg_tpu_torch.ops.diff import window_cell_diff
+from timg_tpu_torch.ops.exact import floor_sqrt_255
 
 GLYPHS = [" ", "▘", "▝", "▖", "▗",
           "▌", "▚", "▄", "▀"]
@@ -92,23 +93,11 @@ def _avd(*values: torch.Tensor):
     return avg, total
 
 
-def _floor_root_255(v: torch.Tensor) -> torch.Tensor:
-    """floor(sqrt(v)) for float32 0 <= v < 65536 (at most 255), by
-    bisection on exact squares (each candidate's square is an integer
-    below 2^24, so the product and the compare are exact): no sqrt, so
-    no CPU path's approximate root can move it."""
-    r = torch.zeros_like(v)
-    for bit in (128.0, 64.0, 32.0, 16.0, 8.0, 4.0, 2.0, 1.0):
-        c = r + bit
-        r = torch.where(c * c <= v, c, r)
-    return r
-
-
 def _repack(lin: torch.Tensor) -> torch.Tensor:
     """LinearColor::repack: sqrtf truncated and clamped to 255 (the
     exact floor root: the linear colors stay below 256^2); alpha
     truncated (a 3-pixel alpha average is not an integer)."""
-    rgb = _floor_root_255(lin[..., :3])
+    rgb = floor_sqrt_255(lin[..., :3])
     return torch.cat([rgb, lin[..., 3:4]], dim=-1).to(torch.uint8)
 
 

@@ -6,12 +6,16 @@ src/framebuffer.h:138-174 (LinearColor). The reference approximates gamma 2.2
 with x^2: linearize c -> c*c (float), blend
 ``(c*a + bg*(255-a)) / 255``, repack with sqrtf truncated to uint8.
 
-The JAX package emulates a correctly rounded ``/`` and ``sqrt``
-(ops/exact.py) because the TPU's are approximate; torch's ``/`` and
-``sqrt`` round correctly on the CPU and on CUDA, so they are used as
-they are.  Every product and sum is its own op, in the reference's
-association ``src_lin * a + bg * (255 - a)``, then ``/ 255``, so no
-step can be contracted into an FMA.
+The JAX package emulates a correctly rounded ``/`` and an exact floor
+root (its ops/exact.py) because the TPU's are approximate.  Here the
+``/ 255`` divides by a device tensor, which torch rounds correctly on
+the CPU and on CUDA; the quotient is never a rounding midpoint (the
+domain proof in timg_tpu/ops/exact.py), so it equals ``rn_div``.  The
+repack takes ops/exact.py's integer floor root, no ``torch.sqrt``: on
+the card's host the CPU sqrt now and then returned a root about 150 ulps
+low, which truncation turns into n - 1.  Every product and sum is its
+own op, in the reference's association ``src_lin * a + bg * (255 - a)``,
+then ``/ 255``, so no step can be contracted into an FMA.
 """
 
 from __future__ import annotations
@@ -19,6 +23,8 @@ from __future__ import annotations
 from typing import Sequence
 
 import torch
+
+from timg_tpu_torch.ops.exact import floor_sqrt_255
 
 
 def _f32(v: float, device: torch.device) -> torch.Tensor:
@@ -64,7 +70,7 @@ def alpha_compose_background(
     src_lin = src * src
     inv = _f32(255.0, dev) - a
     blended = (src_lin * a + chosen_bg[None] * inv) / _f32(255.0, dev)
-    blended_u8 = torch.clamp(torch.sqrt(blended), max=255.0).to(torch.uint8)
+    blended_u8 = floor_sqrt_255(blended).to(torch.uint8)
 
     do_blend = frames[..., 3:4] != 255
     if start_row > 0:                # start_row optimization hook

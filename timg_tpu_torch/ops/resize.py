@@ -1,6 +1,8 @@
 """Resizes in torch ops (counterpart of timg_tpu/ops/resize.py): the lean
 video resize, word in / word out, and the stb-exact RGBA resize of the
-library API (``resize_batch``, at the end of this module).
+library API and the stills (``resize_batch``, near the end of this
+module), and the nearest-neighbour sampling of ``-a``
+(``resize_nearest``, last).
 
 Lean video resize (``resize_video_words``):
 
@@ -36,7 +38,8 @@ import torch
 
 from timg_tpu_torch.ops.resize_np import (_SMALL_FLOAT,
                                           STB_DOWNSAMPLE_FILTER,
-                                          STB_UPSAMPLE_FILTER, packed_taps,
+                                          STB_UPSAMPLE_FILTER,
+                                          nearest_indices, packed_taps,
                                           plan_passes)
 
 ORDER_BLOCK = 32   # inputs per block of the reference dot's sum order
@@ -434,3 +437,15 @@ def resize_batch(
                                  downsample_filter, alpha_weighted)
     return _resize_impl(frames, taps_h, taps_w, vertical_first,
                         alpha_weighted)
+
+
+def resize_nearest(frames: torch.Tensor, out_h: int,
+                   out_w: int) -> torch.Tensor:
+    """Nearest-neighbour resample (no antialias, ``-a``) of [B, H, W, C]
+    on the tensor's device: GM SampleImage source indexing
+    (``resize_np.nearest_indices``), two integer gathers, so every
+    device writes the same bytes."""
+    ys = torch.from_numpy(nearest_indices(frames.shape[1], out_h))
+    xs = torch.from_numpy(nearest_indices(frames.shape[2], out_w))
+    return frames.index_select(1, ys.to(frames.device)).index_select(
+        2, xs.to(frames.device))

@@ -1,6 +1,6 @@
-"""Device-resident video windows (counterpart of
-timg_tpu/render/plane_cache.py: prime_sixel_video_device and
-prime_block_video_device).
+"""Device-resident windows (counterpart of timg_tpu/render/
+plane_cache.py: prime_sixel_video_device, prime_block_video_device,
+prime_sixel_planes and prime_block_planes).
 
 One window of 4:2:0 frames goes host->device once as Y/U/V planes
 (1.5 B/px); conversion, resize and sixel-band padding run on the device,
@@ -21,6 +21,18 @@ window's last frame; only the glyph, fg, bg and eq planes come back.
 The frames handed to the sink are DeviceFrame placeholders: the canvas
 needs only their shape and the primed planes, so the RGBA words stay on
 the device unless someone converts a frame to an array.
+
+The RGBA windows (stills, animations, scroll windows; the JAX module's
+``prime_sixel_planes`` and ``prime_block_planes``) take frames that are
+already resized and composed, stacked on the device: the sixel window
+pads them to a multiple of 6 rows with background rows and runs the
+session's dither (cube, the tree built from the first frame, or each
+frame's libsixel palette with the bucket tables and the table kernel),
+then the transport; the block window runs the block cells with the
+window diff.  There is no host route for small windows: every window
+runs on ``backend.device()``.  A one-shot libsixel still is the
+exception the JAX package makes too: the canvas quantizes it with
+libsixel's own C quantizer, as the reference does.
 """
 
 from __future__ import annotations
@@ -32,6 +44,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from timg_tpu_torch.native import runtime as native_runtime
 from timg_tpu_torch.ops import backend
 from timg_tpu_torch.ops import blocks as blocks_op
 from timg_tpu_torch.ops import libsixel_quant as lsq
@@ -283,10 +296,129 @@ def _dither_libsixel(words: torch.Tensor, padded_h: int, tw: int):
         pal, diffuse = lsq.make_palette_from_samples(rgb[i])
         pals.append(pal)
         diffs.append(bool(diffuse))
+    return table_dither(words, pals, diffs, padded_h, tw), pals
+
+
+def table_dither(words: torch.Tensor, pals: list, diffs: list, h: int,
+                 w: int) -> torch.Tensor:
+    """libsixel's integer FS of a [B, >=h, >=w] words window on its
+    device, each frame with its own palette and diffuse flag: the bucket
+    tables, then the table dither -> [B, h, w] uint8 indices."""
     # uint8 palettes: channels in [0, 255], as the bucket kernel needs
     pals_dev = torch.from_numpy(pad_palettes(pals)).to(words.device)
     diffs_dev = torch.tensor(diffs, dtype=torch.int32, device=words.device)
     tables = build_bucket_tables(pals_dev)
-    indices = fs_dither_table_fused(words, tables, palette_words(pals_dev),
-                                    diffs_dev, padded_h, tw, out_u8=True)
-    return indices, pals
+    return fs_dither_table_fused(words, tables, palette_words(pals_dev),
+                                 diffs_dev, h, w, out_u8=True)
+
+
+def frame_palette(frame: np.ndarray):
+    """One padded [h, w, 4] frame's libsixel palette and diffuse flag:
+    the native histogram and median cut over the whole frame, as the
+    reference builds it per frame (ref sixel-canvas.cc:134-148), or the
+    Python oracle where the native helper does not build."""
+    res = native_runtime.libsixel_palette(frame)
+    if res is None:
+        res = lsq.make_palette(frame[..., :3])
+    return res[0], bool(res[1])
+
+
+def _stacked(frames: list, batch: Optional[torch.Tensor]) -> torch.Tensor:
+    """The window's frames stacked on the device: ``batch`` when the
+    caller has them there already, else one upload of the host frames."""
+    if batch is not None:
+        return batch
+    return torch.from_numpy(np.stack(frames)).to(backend.device())
+
+
+def prime_block_planes(frames: list, options,
+                       batch: Optional[torch.Tensor] = None) -> None:
+    """In block sessions (cell geometry 1x2 / 2x2), the block cells of a
+    window of [H, W, 4] uint8 frames (stills, animations, scroll
+    windows) in one launch on the device, parked in BLOCK_PLANES for
+    the canvas (timg_tpu/render/plane_cache.py:prime_block_planes).
+    ``batch``: the same frames stacked on the device, if the caller has
+    them there.  The cells kernel takes words, and [B, H, W, 4] uint8 is
+    the same memory; the diff of each frame against the one before comes
+    from the same launch."""
+    if not frames or options.cell_x_px > 2 or options.cell_y_px != 2:
+        return
+    quarter = options.cell_x_px == 2
+    if quarter and frames[0].shape[1] % 2:
+        return  # odd width: the canvas widens and renders frame by frame
+    use_upper = get_bool_env("TIMG_USE_UPPER_BLOCK")
+    x = _stacked(frames, batch)
+    b, th, tw = x.shape[:3]
+    ph = th + th % 2
+    top = 1 if (th % 2 and not use_upper) else 0   # blank row on top
+    words = x.contiguous().view(torch.int32)[..., 0]
+    cells = blocks_op.quarter_cells if quarter else blocks_op.half_cells
+    # the cells read an odd height's blank row by index (the reference's
+    # odd-height empty-line shift, ref unicode-block-canvas.cc:356-365)
+    glyph, fg, bg, eq = blocks_op.cells_to_host(
+        cells(words, use_upper, None, diff=b > 1))
+    # One padded view per frame, shared between frame i's "padded" slot
+    # and frame i+1's "prev" slot: the canvas takes the device's diff
+    # mask only when ``cached_prev is self._prev_padded`` (render/
+    # ansi.py).  eq[0] compares with a blank frame and is not used.
+    views = [DeviceFrame(words, i, ph, tw, -top) for i in range(b)]
+    prevs = [None] + views[:-1]
+    eqs = [None] + (list(eq[1:]) if b > 1 else [])
+    for i, frame in enumerate(frames):
+        BLOCK_PLANES.put(frame, (views[i], glyph[i], fg[i], bg[i], prevs[i],
+                                 eqs[i]))
+
+
+def prime_sixel_planes(frames: list, options, state: dict,
+                       sustained: bool = False,
+                       batch: Optional[torch.Tensor] = None) -> None:
+    """In sixel sessions, the index planes of a window of [H, W, 4] uint8
+    frames in one dispatch on the device, parked in SIXEL_PLANES for the
+    canvas (timg_tpu/render/plane_cache.py:prime_sixel_planes, its
+    device branch): the same strip padding and palette rules as the
+    canvas's single-frame route, so the same bytes.  ``state`` is owned
+    by the source and carries the adaptive tree across windows and loops
+    (built once, from the first frame).  ``batch``: the same frames
+    stacked on the device, if the caller has them there."""
+    mode = getattr(options, "sixel_batch_dither", None)
+    if not frames or mode not in ("cube", "adaptive", "libsixel"):
+        return
+    if mode == "libsixel" and len(frames) == 1 and not sustained:
+        # a one-shot still keeps libsixel's own quantizer, run by the
+        # canvas in its compression pool (sixel_render._enqueue_libsixel)
+        return
+    h, w = frames[0].shape[:2]
+    padded_h = h + 5 - (h + 5) % 6                 # round up to sixel 6
+    x = _stacked(frames, batch)
+    if padded_h > h:
+        pad = torch.zeros((x.shape[0], padded_h - h, w, 4), dtype=torch.uint8,
+                          device=x.device)
+        bg = options.bgcolor_getter() if options.bgcolor_getter else None
+        if bg is not None and bg[3] != 0:
+            pad[..., :3] = torch.tensor(list(bg[:3]), dtype=torch.uint8,
+                                        device=x.device)
+            pad[..., 3] = 255
+        x = torch.cat([x, pad], dim=1)
+    words = x.contiguous().view(torch.int32)[..., 0]   # [B, padded_h, w]
+    b = len(frames)
+    if mode == "libsixel":
+        host = x.cpu().numpy()
+        pals, diffs = zip(*(frame_palette(f) for f in host))
+        indices = table_dither(words, list(pals), list(diffs), padded_h, w)
+        palettes, quantizer = list(pals), None
+    elif mode == "cube":
+        indices = fs_dither_cube_fused(words, padded_h, w, out_u8=True)
+        palettes, quantizer = [None] * b, None
+    else:
+        quantizer = state.get("quantizer")
+        if quantizer is None:
+            quantizer = median_cut_tree(x[0, ..., :3].cpu().numpy())
+            state["quantizer"] = quantizer
+        palette, levels, leaves = quantizer
+        indices = fs_dither_tree_fused(words, torch.from_numpy(levels),
+                                       torch.from_numpy(leaves), padded_h,
+                                       w, out_u8=True)
+        palettes = [palette] * b
+    entries = fetch_planes_or_runs(indices, b, padded_h, w)
+    for i, frame in enumerate(frames):
+        SIXEL_PLANES.put(frame, (entries[i], palettes[i], quantizer))

@@ -17,9 +17,12 @@ Assembly runs in the C assembler of the port's native helper
 (native/timg_native.cc) when it builds, else in the pure-Python twin
 ``encode_sixel_stream_py``; ``ASSEMBLED`` counts the frames each one
 assembled, so a run can show which set its time.  ``send`` pops the
-port's SIXEL_PLANES, which the video window primed on the device in
-``cube``, ``libsixel`` or ``adaptive`` mode; frames from elsewhere
-(stills, animations) are not yet ported.  A frame may come as a plane,
+port's SIXEL_PLANES, which the video window and the RGBA windows (stills,
+animations, scroll) primed on the device in ``cube``, ``libsixel`` or
+``adaptive`` mode.  A frame that was not primed takes the single-frame
+route: a one-shot libsixel still libsixel's own C quantizer in the
+compression pool (as the reference), anything else the session's
+dither on the device at B=1.  A frame may come as a plane,
 as run records (``encode_sixel_stream_runs``, the C assembler's records
 entry) or as device-emitted DCS bands (``encode_sixel_stream_dcs``, a
 splice), whichever ops/sixel_runs.py fetched.
@@ -30,7 +33,9 @@ from __future__ import annotations
 import threading
 
 import numpy as np
+import torch
 
+from timg_tpu_torch.ops import backend
 from timg_tpu_torch.ops.sixel_dcs import SixelDcs, splice_host
 from timg_tpu_torch.ops.sixel_runs import SixelRuns, expand_runs_np
 from timg_tpu_torch.options import DisplayOptions, SixelOptions
@@ -317,17 +322,100 @@ class SixelCanvas(TerminalCanvas):
             self.move_cursor_dy(self.cell_height_for_pixels(dy))
         self.move_cursor_dx(x // self._options.cell_x_px)
 
-        # Batched path: the video window primed every frame's plane in
-        # one device dispatch (see plane_cache).
+        # Batched path: sources prime whole windows in one device
+        # dispatch (the same planes; see plane_cache).
         primed = SIXEL_PLANES.pop(frame)
-        if primed is None:
-            raise not_ported("a sixel frame outside a primed video window")
-        indices, palette, quantizer = primed
-        if palette is None:
+        if primed is not None:
+            indices, palette, quantizer = primed
+            if palette is None:
+                palette = cube_palette()
+            else:
+                self._quantizer = quantizer
+            self._enqueue(indices, palette, seq_type, end_of_frame_ms)
+            return
+
+        h, w = frame.shape[:2]
+        padded_h = _round_to_sixel(h)
+        fb = np.zeros((padded_h, w, 4), dtype=np.uint8)
+        fb[:h] = frame
+        if padded_h > h and self._options.bgcolor_getter:
+            # pad strip alpha-composed with background (ref :109-120)
+            bg = self._options.bgcolor_getter()
+            if bg[3] != 0:
+                fb[h:, :, :3] = bg[:3]
+                fb[h:, :, 3] = 255
+
+        if self._dither == "libsixel":
+            if seq_type in (SeqType.START_OF_ANIMATION,
+                            SeqType.ANIMATION_FRAME):
+                # an animation frame that missed the primed planes takes
+                # the windows' route at B=1 (plane_cache.
+                # prime_sixel_planes): its palette, then the bucket
+                # tables and the table dither on the device
+                from timg_tpu_torch.render.plane_cache import (
+                    frame_palette, table_dither)
+                pal, diffuse = frame_palette(fb)
+                words = torch.from_numpy(fb.view(np.int32)[None, ..., 0])
+                indices = table_dither(words.to(backend.device()), [pal],
+                                       [diffuse], padded_h, w)[0]
+                indices = indices.cpu().numpy()
+                self._enqueue(indices, pal, seq_type, end_of_frame_ms)
+                return
+            # Stills: libsixel's own quantizer on the host inside the
+            # compression pool -- the reference's architecture, whose
+            # encode_fun runs sixel_dither_initialize + sixel_encode in
+            # the pool per frame (ref sixel-canvas.cc:128-154).
+            self._enqueue_libsixel(fb, seq_type, end_of_frame_ms)
+            return
+        from timg_tpu_torch.ops import sixel as sixel_op
+
+        x_dev = torch.from_numpy(fb[None]).to(backend.device())
+        if self._dither == "cube":
             palette = cube_palette()
+            indices = sixel_op.fs_dither_cube(x_dev, out_u8=True)[0]
         else:
-            self._quantizer = quantizer
-        self._enqueue(indices, palette, seq_type, end_of_frame_ms)
+            # Adaptive palettes are rebuilt per still image but reused
+            # across animation frames (refreshed at every animation
+            # start), as the JAX canvas does.
+            if (seq_type == SeqType.ANIMATION_FRAME
+                    and getattr(self, "_quantizer", None) is not None):
+                palette, levels, leaves = self._quantizer
+            else:
+                palette, levels, leaves = sixel_op.median_cut_tree(
+                    fb[..., :3])
+                self._quantizer = (palette, levels, leaves)
+            indices = sixel_op.fs_dither_tree(x_dev, levels, leaves,
+                                              out_u8=True)[0]
+        self._enqueue(indices.cpu().numpy(), palette, seq_type,
+                      end_of_frame_ms)
+
+    def _enqueue_libsixel(self, fb: np.ndarray, seq_type: SeqType,
+                          end_of_frame_ms: float) -> None:
+        """Quantize with libsixel's C quantizer (the Python oracle where
+        the native helper does not build) and assemble, all inside the
+        pooled closure."""
+        prefix = self.consume_prefix()
+
+        def assemble() -> bytes:
+            from timg_tpu_torch.native import runtime
+
+            result = runtime.libsixel_quant(fb)
+            if result is None:  # no native helper: the scalar oracle
+                from timg_tpu_torch.ops import libsixel_quant as lsq
+                result = lsq.quantize_reference(fb)
+            indices, palette = result
+            out = bytearray(prefix)
+            out += self._before
+            out += encode_sixel_stream(indices, palette)
+            out += self._after
+            return bytes(out)
+
+        if self._executor is not None:
+            self._sequencer.write_buffer(self._executor.submit(assemble),
+                                         seq_type, end_of_frame_ms)
+        else:
+            self._sequencer.write_buffer(assemble(), seq_type,
+                                         end_of_frame_ms)
 
     def _enqueue(self, indices, palette, seq_type: SeqType,
                  end_of_frame_ms: float) -> None:

@@ -5,14 +5,17 @@ Behavioral spec: ref src/image-source.{h,cc}. A source loads & scales at
 construction time (in the decode pool), then streams frames to a renderer
 sink via ``send_frames`` honoring duration/loop limits.
 
-The ported slices decode video only, so the factory offers the port's
-VideoSource and nothing else; images fail with a "not yet ported"
-message instead of reaching a decoder.
+The factory tries the port's decoders in the JAX package's order,
+restricted to what is ported: QOI, Pillow (PNG, JPEG, GIF, BMP, WebP,
+TIFF, ICO, ...), then video.  A file that only an unported decoder of
+the JAX package opens (OpenSlide, Radiance HDR, SVG, PDF, PostScript,
+the GraphicsMagick long tail, text) gets a message naming that decoder.
 """
 
 from __future__ import annotations
 
 import os
+import struct
 from dataclasses import dataclass
 from typing import Callable, List, Optional
 
@@ -70,8 +73,8 @@ class ImageSource:
                     interrupt: Callable[[], bool], sink: FrameSink) -> None:
         """Stream frames with animation timing
         (ref stb-image-source.cc:172-207)."""
-        # the reference first resolves grid-batched stills here
-        # (sources/batch.py); no source of the port defers its frames
+        from timg_tpu_torch.sources.batch import resolve_frames
+        resolve_frames(self.frames)  # grid-batched stills (sources/batch.py)
         last_height = -1
         is_animation = len(self.frames) > 1 and not self.multi_image
         if not is_animation:
@@ -134,6 +137,67 @@ def format_from_parameters(fmt: str, filename: str, orig_width: int,
     return "".join(out)
 
 
+def looks_like_apng(filename: str) -> bool:
+    """Scan the first KiB of PNG chunks for acTL
+    (ref image-source.cc:297-326)."""
+    if not filename.lower().endswith((".png", ".apng")):
+        return False
+    try:
+        with open(filename, "rb") as f:
+            pos = 8
+            while pos < 1024:
+                f.seek(pos)
+                buf = f.read(8)
+                if len(buf) != 8:
+                    break
+                if buf[4:8] == b"acTL":
+                    return True
+                (length,) = struct.unpack(">I", buf[:4])
+                pos += length + 12
+    except OSError:
+        return False
+    return False
+
+
+# Decoders of the JAX package that the port lacks, by the suffix that
+# gates each (timg_tpu/sources/*.py); the JAX factory tries all but the
+# text decoder before Pillow.
+_UNPORTED_BEFORE_PIL = (
+    ("OpenSlide", (".svs", ".ndpi", ".mrxs", ".scn", ".vms", ".vmu", ".bif",
+                   ".svslide")),
+    ("SVG", (".svg", ".svgz")),
+    ("PDF", (".pdf",)),
+    ("PostScript", (".ps", ".eps")),
+    ("GraphicsMagick-format", (".dpx", ".cin", ".xwd", ".miff", ".xcf",
+                               ".rla")),
+)
+_HDR_SIGNATURES = (b"#?RADIANCE\n", b"#?RGBE\n")
+_TEXT_SUFFIXES = (".txt", ".text", ".log")
+
+
+def _unported_decoder(filename: str) -> str:
+    """The name of the JAX package's decoder that would take this file
+    before Pillow does, where the port lacks it; "" otherwise."""
+    if filename == "-":
+        return ""
+    lower = filename.lower()
+    for name, suffixes in _UNPORTED_BEFORE_PIL:
+        if lower.endswith(suffixes):
+            return name
+    try:
+        with open(filename, "rb") as f:
+            if f.read(16).startswith(_HDR_SIGNATURES):
+                return "Radiance HDR"
+    except OSError:
+        pass
+    return ""
+
+
+def _not_ported(filename: str, decoder: str) -> str:
+    return (f"{filename}: the {decoder} decoder is not yet ported to "
+            "timg_tpu_torch")
+
+
 def create_source(
     filename: str,
     options: DisplayOptions,
@@ -142,23 +206,85 @@ def create_source(
     attempt_image_loading: bool = True,
     attempt_video_loading: bool = True,
 ) -> tuple[Optional[ImageSource], str]:
-    """Returns (source, error_message), like the JAX package's factory."""
-    from timg_tpu_torch.native import runtime
+    """Factory: try sources in priority order, first success wins
+    (ref image-source.cc:155-263). Returns (source, error_message)."""
+    from timg_tpu_torch.sources.pil_source import PILSource
+    from timg_tpu_torch.sources.qoi_source import QOISource
     from timg_tpu_torch.sources.video_source import VideoSource
 
-    if filename != "-" and not os.path.exists(filename):
-        return None, f"{filename}: No such file or directory"
+    candidates: list = []
+    if attempt_image_loading:
+        decoder = _unported_decoder(filename)
+        if decoder and os.path.isfile(filename):
+            return None, _not_ported(filename, decoder)
+        candidates += [QOISource, PILSource]
     if attempt_video_loading:
-        count = -1 if frame_count == NOT_INITIALIZED else frame_count
-        src = VideoSource(filename)
+        candidates.append(VideoSource)
+
+    count = -1 if frame_count == NOT_INITIALIZED else frame_count
+    hint = ""
+    for cls in candidates:
         try:
+            src = cls(filename)
             if src.load_and_scale(options, frame_offset, count):
                 return src, ""
-        except NotImplementedError as e:
+        except NotImplementedError as e:    # a path the port lacks
             return None, f"{filename}: {e}"
-    if runtime.load_video() is None:
-        return None, (f"{filename}: the native video helper is not built "
-                      "(timg_tpu_torch/native/timg_video.cc needs the libav "
-                      "headers and libraries)")
-    return None, (f"{filename}: not a video the native decoder opens; "
-                  "images are not yet ported to timg_tpu_torch")
+        except RuntimeError as e:  # gated-feature diagnosis
+            hint = str(e)
+        except Exception:
+            continue
+
+    # Diagnose (ref image-source.cc:223-243).
+    error = ""
+    if filename != "-":
+        if not os.path.exists(filename):
+            error = f"{filename}: No such file or directory"
+        elif os.path.isdir(filename):
+            error = f"{filename}: is a directory"
+        elif not os.access(filename, os.R_OK):
+            error = f"{filename}: Permission denied"
+    if not error and (filename == "-" or filename == "/dev/stdin"):
+        # ref image-source.cc:239-243
+        error = "If this is a video on stdin, use '-V' to skip image probing"
+    if not error:
+        from timg_tpu_torch.native import runtime
+        if runtime.load_video() is None and filename.lower().endswith(
+                (".mov", ".mp4", ".mkv", ".avi", ".wmv", ".webm")):
+            # ref image-source.cc:245-260; the port's video decoder
+            # builds apart from the assembler (native/runtime.py)
+            error = (f"{filename}: looks like a video file, but the native "
+                     "video helper is not built "
+                     "(timg_tpu_torch/native/timg_video.cc needs the libav "
+                     "headers and libraries)")
+    if not error and attempt_image_loading \
+            and filename.lower().endswith(_TEXT_SUFFIXES):
+        error = _not_ported(filename, "text")
+    if not error and not hint:
+        # Formats only GraphicsMagick's exotic coders decode (ref
+        # graphics-magick-source.cc:156-282 gets these for free; no PIL
+        # equivalent exists): name the format instead of failing
+        # silently, so the user learns *why* instead of guessing.
+        ext = os.path.splitext(filename)[1].lower()
+        if ext in _GM_ONLY_FORMATS:
+            error = (f"{filename}: {ext[1:].upper()} is not supported by "
+                     "this build's decoders (the reference's "
+                     "GraphicsMagick delegate handles it); convert with "
+                     f"`gm convert {os.path.basename(filename)} out.png`")
+    if not error:
+        # gated-feature diagnosis or nothing: the reference is
+        # deliberately silent for a readable-but-undecodable file (its
+        # generic "couldn't load" is commented out,
+        # ref image-source.cc:238, and timg.cc:963 only queues
+        # non-empty errors) -- exit code 1 still reports the failure
+        error = hint
+    return None, error
+
+
+# GraphicsMagick-only long tail (ref graphics-magick-source.cc relies
+# on GM's coder registry): named-diagnostic suffixes with no decoder in
+# the JAX package either (timg_tpu/sources/base.py:_GM_ONLY_FORMATS).
+_GM_ONLY_FORMATS = {
+    ".mvg", ".viff",
+    ".pict", ".pct", ".mat", ".otb", ".palm", ".pwp", ".sct", ".wpg",
+}
