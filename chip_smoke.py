@@ -11,10 +11,18 @@ only the port (timg_tpu_torch), never jax or the JAX package.  Phases:
    parallel) and, beside them, the port's native helper from
    timg_tpu_torch/native/ (g++: the C sixel assembler, which must build,
    and the libav video decoder, which builds only where libav exists);
+   print which deflate the PNG writer loaded (libdeflate or the zlib
+   fallback);
 2. kernels: a seeded window of 32 frames of 1080p 4:2:0 video, converted
    on the card by the convert kernel (byte-equal to its plain version in
    both ranges, timed at 32 and at the CLI's 8 frames, split by
-   torch.profiler) and resized to 720x1280 by the resize kernel (also
+   torch.profiler); the same planes through the swscale-exact kernel of
+   --resample=sws-bitexact (byte-equal to its plain version in both
+   ranges into 720x1280 at 32 and at 8 frames, into 720x1279, the
+   full-chroma path, and at 1080x1920, the unscaled converter; timed by
+   CUDA events and in a CUDA graph beside its byte and operation bounds
+   and the plain version); the converted words resized to 720x1280 by
+   the resize kernel (also
    timed at the CLI's 8-frame window, split by torch.profiler, and checked
    and timed on 8 seeded frames of 2160x3840, which the two-pass route
    also resizes into 16x28 pixels, a geometry no fused tile fits, split by
@@ -66,15 +74,25 @@ only the port (timg_tpu_torch), never jax or the JAX package.  Phases:
    of flat frames (black, a moving white block, a narrow grey ramp)
    under TIMG_TPU_SIXEL_TRANSPORT=plane, runs and dcs: each transport
    must carry all 8 frames (STATS) through its kernels and write the
-   plane's stream.  Each mode's stream must equal the same windows run
-   with TIMG_TPU_TORCH_DEVICE=cpu in a subprocess;
+   plane's stream.  Then two 8-frame windows each of kitty and iTerm2
+   (convert -> resize on the card -> each frame fetched lazily in the
+   canvas's compression pool -> PNG on the host), as `-g160x48 -pk|-pi
+   -b black` runs them (again, once the CPU children are done, split
+   into their legs a window: planes, H2D, convert and resize, the
+   fetches and the PNGs summed over the pool's workers), and one window
+   each of cube sixel, quarter blocks and kitty with
+   --resample=sws-bitexact (the sws kernel in place of the convert and
+   the resize, which must not launch).  Each mode's stream must equal
+   the same windows run with TIMG_TPU_TORCH_DEVICE=cpu in a subprocess
+   (kitty ids pinned in both);
 4. library path: timg_tpu_torch.models.get("sixel") at 720x1280 on 8
    seeded 1080p RGBA frames with a transparent region (bg opaque black),
    in cube, adaptive (a tree per frame) and adaptive with
    adaptive_reuse, and render_batch_yuv on 8 frames of 1080p 4:2:0 in
-   cube; the quarter model at 96x320 and the half model at 96x160 on
-   the same RGBA frames.  The payload lists must equal a CPU
-   subprocess's; the stage times of the cube run are printed;
+   cube; the quarter model at 96x320 and the half model at 96x160, and
+   the kitty and iterm2 models at 720x1280, on the same RGBA frames.
+   The payload lists must equal a CPU subprocess's; the stage times of
+   the cube run are printed;
 5. stills: the port's CLI in this process, as a user runs it at
    -g160x48 on a pty of 8x16-pixel cells, on files made with PIL from
    the seed: a 4032x3024 photo-like JPEG in each dither, -pq and -ph,
@@ -82,9 +100,12 @@ only the port (timg_tpu_torch), never jax or the JAX package.  Phases:
    a transparent region in blocks with -b none and in cube with a
    checkerboard; a 24-frame GIF in libsixel and -pq; eight 1080p PNGs
    in --grid=4x2, cube and -pq; a 3840x1080 panorama scrolled for two
-   windows in libsixel; a 1021x767 still in each forced transport.
-   Each stream must equal the same run on the CPU in a child; then the
-   photo's time to first frame (the whole run, and by legs), a fresh
+   windows in libsixel; a 1021x767 still in each forced transport; in
+   -pk and -pi the JPEG, the alpha PNG with -b none and with the
+   checkerboard, the GIF in -pk (the flip-flop ids) and the grid in
+   -pi (kitty ids pinned before every run).  Each stream must equal the
+   same run on the CPU in a child; then the photo's time to first frame
+   in libsixel, cube and -pk (the whole run, and by legs), a fresh
    process's start, and the still path's torch ops (stb resize,
    compose, trim bounds, nearest, scroll) by CUDA events beside their
    byte bound.
@@ -119,14 +140,26 @@ H_4K, W_4K = 2160, 3840  # 4K-class input of the resize check
 PASS_H, PASS_W = 16, 28  # 4K into this many pixels takes the two passes
 WARP_ROWS = 32          # rows of one warp of the f32 dither
 # frames through the main path per mode (8-frame windows): the sixel
-# dithers, then quarter and half blocks
+# dithers, quarter and half blocks, kitty and iTerm2, then one window
+# each with --resample=sws-bitexact (a mode's name ends in " sws")
 N_MAIN = {"cube": 16, "libsixel": 8, "adaptive": 8, "quarter": 16,
-          "half": 16}
+          "half": 16, "kitty": 16, "iterm2": 16, "cube sws": 8,
+          "quarter sws": 8, "kitty sws": 8}
+PIXEL_MODES = ("kitty", "iterm2")
+# the escape that opens each image of a pixel mode's stream
+PIXEL_HEADS = {"kitty": b"\033_Ga=T", "iterm2": b"\033]1337;File="}
+KITTY_ID_START = 400000     # kitty ids pinned before every run
 # the block modes' cells in pixels and the CLI's width_stretch (a
 # terminal whose cell size is unknown: 1.0, doubled for quarter blocks)
 BLOCK_MODES = {"quarter": (2, 2.0), "half": (1, 1.0)}
 GRID_W, GRID_H = 160, 48    # -g160x48
 BG_WORD = -(1 << 24)    # opaque black RGBA word, as -b black pads rows
+# integer operations the sws function needs (ops/sws_resize.py, counted
+# from its arithmetic, one IMAD a tap): each 15-bit intermediate once (a
+# source row's taps at each output column of its plane), each output
+# row's vertical taps, then about 31 a pixel for the rounding, the
+# pair's chroma offsets, the three table lookups and the pack
+SWS_CONVERT_OPS_PER_PX = 31
 N_LIB = 8               # frames a library-path run renders
 # library-path runs: name -> (dither, adaptive_reuse, input)
 LIB_RUNS = {"cube": ("cube", False, "rgba"),
@@ -134,7 +167,9 @@ LIB_RUNS = {"cube": ("cube", False, "rgba"),
             "adaptive_reuse": ("adaptive", True, "rgba"),
             "yuv": ("cube", False, "yuv"),
             "quarter": (None, False, "rgba"),
-            "half": (None, False, "rgba")}
+            "half": (None, False, "rgba"),
+            "kitty": (None, False, "rgba"),
+            "iterm2": (None, False, "rgba")}
 # the block models' output pixels (the library's -g160x48 canvas)
 LIB_BLOCK_SIZE = {"quarter": (96, 320), "half": (96, 160)}
 # the sixel modes run again on flat windows in each forced transport
@@ -291,33 +326,98 @@ def timed_block_legs(legs: dict):
             setattr(owner, attr, fn)
 
 
+PIXEL_LEGS = ("planes", "h2d", "convert_resize", "fetch", "png")
+
+
+@contextlib.contextmanager
+def timed_pixel_legs(legs: dict):
+    """While open, the pixel window's legs add their seconds to
+    ``legs``: "h2d" and "convert_resize" as ``timed_block_legs`` times
+    them (host clock, synchronized), "fetch" (each frame's device->host
+    copy, DeviceFrame.__array__) and "png" (the Sub filter and the
+    deflate) summed over the compression pool's workers."""
+    import threading
+
+    from timg_tpu_torch.render import plane_cache, png, png_core
+
+    lock = threading.Lock()
+
+    def summed(key, fn):
+        def run(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            with lock:
+                legs[key] += time.perf_counter() - t0
+            return out
+        return run
+
+    patches = [(plane_cache.DeviceFrame, "__array__", "fetch"),
+               (png, "sub_filter_rows", "png"),
+               (png_core, "zlib_compress", "png")]
+    saved = [(owner, attr, getattr(owner, attr)) for owner, attr, _ in
+             patches]
+    for owner, attr, key in patches:
+        setattr(owner, attr, summed(key, getattr(owner, attr)))
+    try:
+        with timed_block_legs(legs):
+            yield
+    finally:
+        for owner, attr, fn in saved:
+            setattr(owner, attr, fn)
+
+
+def print_legs(mode: str, legs: list) -> None:
+    pixel = mode in PIXEL_MODES
+    for k, leg in enumerate(legs):
+        print(f"main path: {mode} window {k} legs (host clock, synchronized"
+              + ("; fetch and png summed over the pool's workers" if pixel
+                 else "") + "): " + ", ".join(
+                  f"{key} {leg[key] * 1e3:.3f} ms"
+                  for key in (PIXEL_LEGS if pixel else BLOCK_LEGS)))
+
+
+def pin_kitty_ids() -> None:
+    """The kitty canvas's image ids are seeded from the clock: pin them
+    before each run, in this process and in every CPU child alike."""
+    from timg_tpu_torch.render import kitty
+
+    kitty._id_start, kitty._id_counter = KITTY_ID_START, 0
+
+
 def main_path_stream(mode: str, n: int, legs: list = None,
                      content: str = "seeded") -> bytes:
     """n frames of 1080p (``yuv_frames``, or ``flat_yuv_frames`` with
     content "flat") through the port's video window, in 8-frame
-    windows, dithered in ``mode`` into the port's SixelCanvas, or in
-    quarter or half blocks into its UnicodeBlockCanvas; returns the
-    written stream.  Given a list ``legs`` in a block mode, appends each
-    window's legs in seconds (BLOCK_LEGS: the planes' making, a window's
-    share; ``timed_block_legs``; the canvas's emit of its frames)."""
+    windows, dithered in ``mode`` into the port's SixelCanvas, in
+    quarter or half blocks into its UnicodeBlockCanvas, or into its
+    KittyCanvas or ITerm2Canvas (each with the CLI's compression pool);
+    a mode ending in " sws" runs --resample=sws-bitexact.  Returns the
+    written stream.  Given a list ``legs`` in a block or pixel mode,
+    appends each window's legs in seconds (BLOCK_LEGS or PIXEL_LEGS: the
+    planes' making, a window's share; ``timed_block_legs`` or
+    ``timed_pixel_legs``; the block canvas's emit of its frames)."""
     from concurrent.futures import ThreadPoolExecutor
 
     from timg_tpu_torch.colors import parse_color
     from timg_tpu_torch.geometry import calc_scale_to_fit
     from timg_tpu_torch.options import DisplayOptions, SixelOptions
     from timg_tpu_torch.render.ansi import UnicodeBlockCanvas
+    from timg_tpu_torch.render.iterm2 import ITerm2Canvas
+    from timg_tpu_torch.render.kitty import KittyCanvas
     from timg_tpu_torch.render.renderer import Renderer
     from timg_tpu_torch.render.sequencer import BufferedWriteSequencer, SeqType
     from timg_tpu_torch.render.sixel_render import SixelCanvas
     from timg_tpu_torch.sources.video_source import _WINDOW, VideoSource
 
-    if mode in BLOCK_MODES:
-        opts = block_options(mode)
+    base, _, resample = mode.partition(" ")
+    if base in BLOCK_MODES:
+        opts = block_options(base)
     else:
         opts = DisplayOptions()
         opts.cell_x_px, opts.cell_y_px = 8, 16
         opts.width, opts.height = GRID_W * 8, GRID_H * 16   # -g160x48
-        opts.sixel_batch_dither = mode
+        if base not in PIXEL_MODES:
+            opts.sixel_batch_dither = base
     bg = parse_color("black")
     opts.bgcolor_getter = lambda: bg
     tw, th, _ = calc_scale_to_fit(IN_W, IN_H, opts)
@@ -326,11 +426,15 @@ def main_path_stream(mode: str, n: int, legs: list = None,
     src._options = opts
     src._target = (tw, th)
     src._full_range = False
+    src._sws_device = resample == "sws"
+    pin_kitty_ids()
     t0 = time.perf_counter()
     ys, us, vs = (yuv_frames(n, SEED + 1) if content == "seeded"
                   else flat_yuv_frames(n))
     planes_s = (time.perf_counter() - t0) * _WINDOW / n
-    timing = legs is not None and mode in BLOCK_MODES
+    timing = legs is not None and base in (*BLOCK_MODES, *PIXEL_MODES)
+    leg_names = PIXEL_LEGS if base in PIXEL_MODES else BLOCK_LEGS
+    timer = timed_pixel_legs if base in PIXEL_MODES else timed_block_legs
 
     with tempfile.TemporaryDirectory() as tmp, \
             ThreadPoolExecutor(max_workers=5) as pool:
@@ -340,29 +444,36 @@ def main_path_stream(mode: str, n: int, legs: list = None,
             fd, allow_frame_skipping=False, max_queue_len=4,
             debug_no_frame_delay=True, interrupt_flag=lambda: False)
         # the CLI's canvas: compression pool of queue_len + 1 workers
-        if mode in BLOCK_MODES:
+        if base in BLOCK_MODES:
             canvas = UnicodeBlockCanvas(sequencer,
-                                        use_quarter=mode == "quarter")
+                                        use_quarter=base == "quarter")
+        elif base == "kitty":
+            canvas = KittyCanvas(sequencer, False, opts, executor=pool)
+        elif base == "iterm2":
+            canvas = ITerm2Canvas(sequencer, opts, executor=pool)
         else:
             canvas = SixelCanvas(sequencer, SixelOptions(), opts,
-                                 dither=mode, executor=pool)
+                                 dither=base, executor=pool)
         sink = Renderer.create(canvas, opts, 1, 1, 0.0, 0.0).render_cb("")
         last_h = -1
         for k in range(0, n, _WINDOW):
             window = [(ys[i], us[i], vs[i]) for i in range(k, k + _WINDOW)]
-            leg = dict.fromkeys(BLOCK_LEGS, 0.0)
+            leg = dict.fromkeys(leg_names, 0.0)
             leg["planes"] = planes_s
-            with (timed_block_legs(leg) if timing
-                  else contextlib.nullcontext()):
+            with (timer(leg) if timing else contextlib.nullcontext()):
                 frames = src._process_window(window, "yuv")
-            t0 = time.perf_counter()
-            for j, frame in enumerate(frames):
-                seq = (SeqType.START_OF_ANIMATION if k + j == 0
-                       else SeqType.ANIMATION_FRAME)
-                sink(src.indentation, -last_h if last_h > 0 else 0, frame,
-                     seq, 40.0 * (k + j + 1))
-                last_h = frame.shape[0]
-            leg["emit"] = time.perf_counter() - t0
+                t0 = time.perf_counter()
+                for j, frame in enumerate(frames):
+                    seq = (SeqType.START_OF_ANIMATION if k + j == 0
+                           else SeqType.ANIMATION_FRAME)
+                    sink(src.indentation, -last_h if last_h > 0 else 0,
+                         frame, seq, 40.0 * (k + j + 1))
+                    last_h = frame.shape[0]
+                if timing and base in PIXEL_MODES:
+                    # the window's frames encoded: its fetches and PNGs
+                    # counted in this window's legs
+                    sequencer.flush()
+                leg["emit"] = time.perf_counter() - t0
             if timing:
                 legs.append(leg)
         canvas.close()
@@ -522,6 +633,93 @@ def convert_phase(planes) -> tuple:
     if len(split) != 1:
         fail(f"the convert ran {len(split)} device kernels a call, not one")
     return words, r
+
+
+def sws_ops(plan, b: int) -> int:
+    """Integer operations the swscale-exact function needs for b frames
+    of ``plan``'s geometry (``SWS_CONVERT_OPS_PER_PX``'s count)."""
+    fl, fc = plan.h_lum_coef.shape[1], plan.h_chr_coef.shape[1]
+    if plan.unscaled:
+        return b * plan.dst_h * plan.dst_w * SWS_CONVERT_OPS_PER_PX
+    per = (plan.src_h * plan.dst_w * fl
+           + plan.dst_h * plan.dst_w * plan.v_lum_size
+           + 2 * (plan.chr_src_h * plan.chr_dst_w * fc
+                  + plan.dst_h * plan.chr_dst_w * plan.v_chr_size)
+           + plan.dst_h * plan.dst_w * SWS_CONVERT_OPS_PER_PX)
+    return b * per
+
+
+def sws_phase(planes) -> dict:
+    """The swscale-exact kernel (--resample=sws-bitexact) on the window's
+    1080p planes: byte-equal to its plain version on the card in both
+    ranges into 720x1280 at B=32 and at the CLI's B=8, into 720x1279 (an
+    odd width: the full-chroma path) and at 1080x1920 (equal size, even
+    height: the unscaled converter); timed by CUDA events over calls and
+    in a CUDA graph beside its bound and the plain version."""
+    import torch
+
+    from timg_tpu_torch.ops import sws_kernel
+    from timg_tpu_torch.ops.sws_resize import (
+        get_plan, sws_yuv420_to_rgba_words_plain)
+
+    window = [p[:N_WINDOW] for p in planes]
+    errs = []
+    for what, (oh, ow), batch in (
+            (f"720x1280, B={N_KERNEL}", (OUT_H, OUT_W), planes),
+            (f"720x1280, B={N_WINDOW}", (OUT_H, OUT_W), window),
+            (f"720x1279 (full chroma), B={N_WINDOW}", (OUT_H, OUT_W - 1),
+             window),
+            (f"1080x1920 (unscaled), B={N_WINDOW}", (IN_H, IN_W), window)):
+        for full_range in (False, True):
+            plan = get_plan(IN_W, IN_H, ow, oh, full_range)
+            n0 = sws_kernel.LAUNCHES
+            got = sws_kernel.sws_yuv420_to_rgba_words_cuda(*batch, plan)
+            torch.cuda.synchronize()
+            if sws_kernel.LAUNCHES - n0 != 1:
+                fail("the sws kernel counted "
+                     f"{sws_kernel.LAUNCHES - n0} launches a call")
+            errs.append(check_equal(
+                f"sws_yuv420_to_rgba_words {what} (full_range={full_range})",
+                got, sws_yuv420_to_rgba_words_plain(*batch, oh, ow,
+                                                    full_range)))
+        print(f"kernels: sws_yuv420_to_rgba_words {IN_H}x{IN_W} -> {what}, "
+              f"template {plan.template}, both ranges: equal to plain")
+
+    def nbytes(b, oh, ow):   # the three planes in, the words out
+        return b * (IN_H * IN_W * 3 // 2 + oh * ow * 4)
+
+    def call(batch, plan):
+        return lambda: sws_kernel.sws_yuv420_to_rgba_words_cuda(*batch, plan)
+
+    plan = get_plan(IN_W, IN_H, OUT_W, OUT_H, False)
+    r = dict(max_abs_err=max(errs), ms=cuda_ms(call(planes, plan), 20),
+             plain_ms=cuda_ms(lambda: sws_yuv420_to_rgba_words_plain(
+                 *planes, OUT_H, OUT_W, False), 2),
+             library_ms=None,     # no PyTorch call computes it
+             **bound(nbytes(N_KERNEL, OUT_H, OUT_W),
+                     sws_ops(plan, N_KERNEL), INT32_OPS_PER_S))
+    for what, (oh, ow) in (("720x1280", (OUT_H, OUT_W)),
+                           ("720x1279 (full chroma)", (OUT_H, OUT_W - 1)),
+                           ("1080x1920 (unscaled)", (IN_H, IN_W))):
+        p = get_plan(IN_W, IN_H, ow, oh, False)
+        ms = cuda_ms(call(window, p), 20)
+        dev_ms = graph_ms(call(window, p))
+        plain = cuda_ms(lambda: sws_yuv420_to_rgba_words_plain(
+            *window, oh, ow, False), 2)
+        nb = nbytes(N_WINDOW, oh, ow)
+        bb = bound(nb, 0)["bound_ms"]
+        bo = bound(0, sws_ops(p, N_WINDOW), INT32_OPS_PER_S)["bound_ms"]
+        print(f"kernels: sws_yuv420_to_rgba_words {IN_H}x{IN_W} -> {what} "
+              f"at the CLI's window, B={N_WINDOW}: {ms:.6f} ms by events, "
+              f"{dev_ms:.6f} ms device (CUDA graph), plain {plain:.6f} ms; "
+              f"byte bound {bb:.6f} ms ({nb / 1e6:.2f} MB: "
+              f"{N_WINDOW * IN_H * IN_W * 3 // 2 / 1e6:.2f} in, "
+              f"{N_WINDOW * oh * ow * 4 / 1e6:.2f} out), operation bound "
+              f"{bo:.6f} ms ({sws_ops(p, N_WINDOW)} int32)")
+    r["graph_ms"] = graph_ms(call(planes, plan))
+    print(f"kernels: sws_yuv420_to_rgba_words at B={N_KERNEL}: "
+          f"{r['graph_ms']:.6f} ms device (CUDA graph)")
+    return r
 
 
 def resize_4k(dev) -> None:
@@ -784,6 +982,7 @@ def kernel_phase(dev):
     planes = [torch.from_numpy(p).to(dev) for p in (ys, us, vs)]
     results = {}
     words, results["convert"] = convert_phase(planes)
+    results["sws"] = sws_phase(planes)
     del planes
 
     # resize: kernel vs the plain version on CPU copies, 1080p -> 720 and
@@ -1363,11 +1562,16 @@ def rgba_frames(n: int, seed: int):
 
 def library_payloads(run: str) -> list:
     """One library-path run: 8 seeded 1080p frames through
-    timg_tpu_torch.models.get("sixel") at 720x1280, or through the
-    quarter or half block model at LIB_BLOCK_SIZE -> the payloads."""
+    timg_tpu_torch.models.get("sixel"), "kitty" or "iterm2" at
+    720x1280, or through the quarter or half block model at
+    LIB_BLOCK_SIZE -> the payloads."""
     from timg_tpu_torch import models
 
     dither, reuse, kind = LIB_RUNS[run]
+    if run in PIXEL_MODES:
+        model = models.get(run)(out_h=OUT_H, out_w=OUT_W,
+                                bg_color=(0, 0, 0, 255))
+        return model.render_batch(rgba_frames(N_LIB, SEED + 3))
     if run in LIB_BLOCK_SIZE:
         oh, ow = LIB_BLOCK_SIZE[run]
         model = models.get(run)(out_h=oh, out_w=ow, bg_color=(0, 0, 0, 255))
@@ -1444,11 +1648,19 @@ PATH_KERNELS = {"cube": ("convert", "resize", "dither"),
                 "libsixel": ("convert", "resize", "bucket", "table"),
                 "adaptive": ("convert", "resize", "tree"),
                 "quarter": ("convert", "resize", "quarter_cells"),
-                "half": ("convert", "resize", "half_cells")}
+                "half": ("convert", "resize", "half_cells"),
+                "kitty": ("convert", "resize"),
+                "iterm2": ("convert", "resize"),
+                "cube sws": ("sws", "dither"),
+                "quarter sws": ("sws", "quarter_cells"),
+                "kitty sws": ("sws",)}
+# the library's kitty and iTerm2 models run the stb resize and the
+# compose, torch ops, and no hand kernel
 LIB_KERNELS = {"cube": ("cube_rgb",), "adaptive": ("tree_rgb",),
                "adaptive_reuse": ("tree_rgb",),
                "yuv": ("convert", "resize", "cube_rgb"),
-               "quarter": ("quarter_cells",), "half": ("half_cells",)}
+               "quarter": ("quarter_cells",), "half": ("half_cells",),
+               "kitty": (), "iterm2": ()}
 
 
 # ---------------------------------------------------------------- stills
@@ -1491,11 +1703,21 @@ STILL_CASES = {
                 {"TIMG_TPU_SIXEL_TRANSPORT": "dcs"}),
     "photo auto-crop": (["-pq", "--auto-crop"], ["photo.jpg"], {}),
     "photo nearest": (["-ps", "--dither=cube", "-a"], ["photo.jpg"], {}),
+    "photo pk": (["-pk"], ["photo.jpg"], {}),
+    "photo pi": (["-pi"], ["photo.jpg"], {}),
+    "alpha pk none": (["-pk", "-b", "none"], ["alpha.png"], {}),
+    "alpha pi none": (["-pi", "-b", "none"], ["alpha.png"], {}),
+    "alpha pk checker": (["-pk", "-b", "black", "-B", "gray"],
+                         ["alpha.png"], {}),
+    "alpha pi checker": (["-pi", "-b", "black", "-B", "gray"],
+                         ["alpha.png"], {}),
+    "gif pk": (["-pk", "--loops=1"], ["anim.gif"], {}),
+    "grid pi": (["-pi", "--grid=4x2"], GRID_FILES, {}),
 }
 # frames each case writes (an image each; the GIF's 24; the scroll's 26)
-STILL_FRAMES = {"gif libsixel": 24, "gif pq": 24, "grid cube": 8,
-                "grid cube unbatched": 8, "grid pq": 8,
-                "scroll libsixel": 26}
+STILL_FRAMES = {"gif libsixel": 24, "gif pq": 24, "gif pk": 24,
+                "grid cube": 8, "grid cube unbatched": 8, "grid pq": 8,
+                "grid pi": 8, "scroll libsixel": 26}
 STILL_KERNELS = ("dither", "tree", "bucket", "table", "quarter_cells",
                  "half_cells", "run_counts")
 N_STILL_CHILDREN = 4        # CPU children sharing the cases
@@ -1580,6 +1802,7 @@ def cli_stream(argv: list, out_path: str) -> bytes:
 
     threading.Thread(target=pump, daemon=True).start()
     sys.stdout.flush()
+    pin_kitty_ids()
     saved = os.dup(1)
     try:
         os.dup2(slave, 1)
@@ -1673,11 +1896,13 @@ def still_op_times(dev, d: str) -> None:
 
 def still_legs(dev, d: str) -> None:
     """The photo's first frame split into its legs (host clock,
-    synchronized; device legs also by CUDA events inside): decode with
-    the JPEG draft, H2D, stb resize, the compose's alpha check (the
-    photo is opaque, so no blend runs), then for cube the dither, the
-    transport and the C assembly, for libsixel (the default) the fetch of
-    the frame, libsixel's C quantizer and the assembly."""
+    synchronized): decode with the JPEG draft, H2D, stb resize, the
+    compose's alpha check (the photo is opaque, so no blend runs), then
+    for cube the dither, the transport and the C assembly, for libsixel
+    (the default) the fetch of the frame, libsixel's C quantizer and the
+    assembly, for kitty (-pk; -b auto is none there, so an RGBA PNG at
+    level 1) the fetch of the frame and its PNG (Sub filter and
+    deflate)."""
     import numpy as np
     import torch
     from PIL import Image
@@ -1688,6 +1913,7 @@ def still_legs(dev, d: str) -> None:
     from timg_tpu_torch.ops.sixel_np import cube_palette
     from timg_tpu_torch.ops.sixel_dcs import SixelDcs
     from timg_tpu_torch.ops.sixel_runs import SixelRuns, fetch_planes_or_runs
+    from timg_tpu_torch.render.png import encode_png
     from timg_tpu_torch.render.sixel_render import (encode_sixel_stream,
                                                     encode_sixel_stream_dcs,
                                                     encode_sixel_stream_runs)
@@ -1699,7 +1925,7 @@ def still_legs(dev, d: str) -> None:
         torch.cuda.synchronize()
         return out, (time.perf_counter() - t0) * 1e3
 
-    for mode in ("libsixel", "cube"):
+    for mode in ("libsixel", "cube", "kitty"):
         legs = {}
 
         def decode():
@@ -1724,6 +1950,9 @@ def still_legs(dev, d: str) -> None:
                       else encode_sixel_stream)
             _, legs["assembly"] = clock(
                 lambda: encode(entries[0], cube_palette()))
+        elif mode == "kitty":
+            host, legs["fetch"] = clock(lambda: r[0].cpu().numpy())
+            _, legs["png"] = clock(lambda: encode_png(host, 1, True))
         else:
             host, legs["transport"] = clock(lambda: r[0].cpu().numpy())
             (idx, pal), legs["dither"] = clock(
@@ -1731,7 +1960,8 @@ def still_legs(dev, d: str) -> None:
             _, legs["assembly"] = clock(
                 lambda: encode_sixel_stream(idx, pal))
         total = sum(legs.values())
-        print(f"stills: photo -ps --dither={mode}, first frame by legs "
+        flags = "-pk" if mode == "kitty" else f"-ps --dither={mode}"
+        print(f"stills: photo {flags}, first frame by legs "
               f"(host clock, synchronized, ms): " + ", ".join(
                   f"{k} {v:.3f}" for k, v in legs.items())
               + f"; sum {total:.3f}")
@@ -1812,6 +2042,18 @@ def still_run(name: str, d: str, streams: dict) -> int:
         if got != n:
             fail(f"stills {name}: {got} sixel images, expected {n}")
         return 0
+    pixel = "kitty" if "-pk" in flags else "iterm2" if "-pi" in flags \
+        else None
+    if pixel:
+        got = streams[name].count(PIXEL_HEADS[pixel])
+        if got != n:
+            fail(f"stills {name}: {got} {pixel} images, expected {n}")
+        if name == "gif pk" and not all(
+                b"i=%d," % (KITTY_ID_START + k) in streams[name]
+                for k in (1, 2)):
+            fail("stills gif pk: the animation's two flip-flop ids are "
+                 "missing")
+        return 0
     if b"\033[0m\n" not in streams[name]:
         fail(f"stills {name} wrote no row of cells")
     return n
@@ -1869,16 +2111,16 @@ def stills_phase(dev, reset_counts, read_counts, launches: dict) -> None:
             fail(f"stills: of {block_frames} block frames the C emitter "
                  f"wrote {emitted['c']}, the Python twin "
                  f"{emitted['python']}")
-        for mode in ("libsixel", "cube"):
+        for case in ("photo libsixel", "photo cube", "photo pk"):
             runs = []
             for _ in range(2):
                 t0 = time.perf_counter()
-                cli_stream(still_argv(f"photo {mode}", d),
+                cli_stream(still_argv(case, d),
                            os.path.join(d, "again.cuda"))
                 runs.append((time.perf_counter() - t0) * 1e3)
-            print(f"stills: photo -ps --dither={mode}: time to first frame, "
-                  f"the whole CLI run in a warm process (host clock): "
-                  f"{runs[0]:.1f} and {runs[1]:.1f} ms")
+            print(f"stills: {case} ({' '.join(STILL_CASES[case][0])}): time "
+                  f"to first frame, the whole CLI run in a warm process "
+                  f"(host clock): {runs[0]:.1f} and {runs[1]:.1f} ms")
         print(f"stills: a fresh process's torch import and CUDA context: "
               f"{process_start_ms():.1f} ms (host clock)")
         still_legs(dev, d)
@@ -1968,10 +2210,12 @@ def main() -> int:
     from timg_tpu_torch.ops import (_build, blocks_kernel, libsixel_kernel,
                                     resize_kernel, sixel_dcs_kernel,
                                     sixel_kernel, sixel_runs,
-                                    sixel_runs_kernel, yuv_kernel)
-    from timg_tpu_torch.render import ansi, sixel_render
+                                    sixel_runs_kernel, sws_kernel,
+                                    yuv_kernel)
+    from timg_tpu_torch.render import ansi, png_core, sixel_render
     counters = {   # kernel -> (module, its launch counter)
         "convert": (yuv_kernel, "LAUNCHES"),
+        "sws": (sws_kernel, "LAUNCHES"),
         "resize": (resize_kernel, "LAUNCHES"),
         "resize_passes": (resize_kernel, "PASS_LAUNCHES"),
         "dither": (sixel_kernel, "LAUNCHES"),
@@ -2010,6 +2254,11 @@ def main() -> int:
             if any(k in line for k in ("registers", "Compiling entry",
                                        "spill")):
                 print("setup: ptxas:", line.strip())
+    deflate = png_core.load_libdeflate()
+    print("setup: the PNG writer (kitty, iTerm2) deflates with "
+          + (f"libdeflate ({deflate._name})" if deflate is not None else
+             "the zlib fallback (no libdeflate on this host); its CPU "
+             "children load the same"))
 
     results = kernel_phase(dev)
     transport_legs(dev)
@@ -2046,27 +2295,33 @@ def main() -> int:
             print(f"main path: {mode}: {n} frames in {t_main:.2f} s (host "
                   f"clock, assembly included), {len(stream)} bytes, "
                   f"launches {counts}")
+            base, _, resample = mode.partition(" ")
             if mode in BLOCK_MODES:   # again, split into its legs
                 legs = []
                 if main_path_stream(mode, n, legs) != stream:
                     fail(f"main path {mode}: a second run on the card "
                          "wrote another stream")
                 block_frames += n
-                for k, leg in enumerate(legs):
-                    print(f"main path: {mode} window {k} legs (host clock, "
-                          "synchronized): " + ", ".join(
-                              f"{key} {leg[key] * 1e3:.3f} ms"
-                              for key in BLOCK_LEGS))
+                print_legs(mode, legs)
+            sixel = base not in (*BLOCK_MODES, *PIXEL_MODES)
             for k in PATH_KERNELS[mode] + (
-                    () if mode in BLOCK_MODES else TRANSPORT_KERNELS["auto"]):
+                    TRANSPORT_KERNELS["auto"] if sixel else ()):
                 if counts[k] <= 0:
                     fail(f"main path {mode} launched no {k} kernel")
+            if resample and counts["convert"] + counts["resize"]:
+                fail(f"main path {mode}: --resample=sws-bitexact launched "
+                     "the convert or the resize")
             for k in counts:
                 launches[k] += counts[k]
-            if mode in BLOCK_MODES:
+            if base in BLOCK_MODES:
                 block_frames += n
                 if b"\033[0m\n" not in stream:
                     fail(f"main path {mode} wrote no row of cells")
+            elif base in PIXEL_MODES:
+                got = stream.count(PIXEL_HEADS[base])
+                if got != n:
+                    fail(f"main path {mode} wrote {got} images, expected "
+                         f"{n}")
             else:
                 n_dcs = stream.count(b"\033Pq")
                 if n_dcs != n:
@@ -2135,6 +2390,11 @@ def main() -> int:
                         p.count(b"\033[0m\n") == rows for p in out):
                     fail(f"library path {run}: expected {N_LIB} payloads "
                          f"of {rows} rows of cells")
+            elif run in PIXEL_MODES:
+                if len(out) != N_LIB or not all(
+                        p.startswith(PIXEL_HEADS[run]) for p in out):
+                    fail(f"library path {run}: expected {N_LIB} {run} "
+                         "payloads")
             elif len(out) != N_LIB or not all(
                     p.startswith(b"\033Pq") and p.endswith(b"\033\\")
                     for p in out):
@@ -2184,6 +2444,14 @@ def main() -> int:
                      + first_difference(streams[mode], out)
                      + f"; a second cuda run {which}")
             print(f"main path: {mode}: cuda stream == cpu stream")
+        # the pixel modes again, split into their legs, now that no CPU
+        # child competes for the host's cores with the pool's deflate
+        for mode in PIXEL_MODES:
+            legs = []
+            if main_path_stream(mode, N_MAIN[mode], legs) != streams[mode]:
+                fail(f"main path {mode}: a second run on the card wrote "
+                     "another stream")
+            print_legs(mode, legs)
     finally:
         for child in children.values():
             if child.poll() is None:
@@ -2194,6 +2462,8 @@ def main() -> int:
 
     entries = [
         ("yuv420_to_rgba", "convert", "yuv420.cu", "timg_tpu/ops/yuv.py:109"),
+        ("sws_yuv420_to_rgba", "sws", "sws_yuv420.cu",
+         "timg_tpu/ops/sws_resize.py:261"),
         ("resize_words", "resize", "resize_words.cu",
          "timg_tpu/ops/resize_pallas.py:227"),
         ("resize_passes", "resize_passes", "resize_passes.cu",

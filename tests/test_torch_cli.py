@@ -4,7 +4,8 @@ The same y4m clip goes through both CLIs under a scripted pty; the sixel
 streams must be byte-identical, in every --dither mode, and so must the
 quarter- and half-block streams.  The port never
 imports jax, which a subprocess run shows, and it refuses what it does
-not run yet (stills: tests/test_torch_stills_cli.py).
+not run yet (stills: tests/test_torch_stills_cli.py; kitty, iTerm2 and
+--resample=sws-bitexact: tests/test_torch_pixel_cli.py).
 """
 
 import os
@@ -22,11 +23,15 @@ ARGV = ["--debug-no-frame-delay", "-g40x20", "-ps", "--dither=cube",
         "-b", "black", "--loops=1"]
 
 
-@pytest.fixture
-def native():
+def _need_native():
     from timg_tpu.native import runtime
     if runtime.load() is None:
         pytest.skip("native video helper unavailable")
+
+
+@pytest.fixture
+def native():
+    _need_native()
 
 
 def _y4m(tmp_path, w=64, h=48, n=5):
@@ -165,13 +170,26 @@ def test_cli_without_cuda_names_the_variable(monkeypatch, tmp_path, capsys):
     (["-ps", "--dither=cube", "--resample=sws"], "--resample=sws"),
 ])
 def test_cli_refuses_what_is_not_ported(tmp_path, capsys, flags, what):
+    """--resample=sws (the host swscale leg) is refused with a message
+    that names it; -pk and -pi, refused until kitty and iTerm2 were
+    ported, now run and write their image (one frame: without a terminal
+    the cell size is unknown; their streams against the JAX CLI:
+    tests/test_torch_pixel_cli.py)."""
     from timg_tpu_torch.cli import main
+    runs = "--resample=sws" not in flags
+    if runs:
+        _need_native()
     out = tmp_path / "x.out"
-    rc = main(["--debug-no-frame-delay", "-g40x20", *flags,
+    rc = main(["--debug-no-frame-delay", "-g40x20", *flags, "--loops=1",
                _y4m(tmp_path), "-o", str(out)])
-    assert rc != 0
     err = capsys.readouterr().err
-    assert what in err and "not yet ported" in err
+    if runs:
+        assert rc == 0 and what not in err and "not yet ported" not in err
+        head = b"\033_Ga=T" if "-pk" in flags else b"\033]1337;File="
+        assert out.read_bytes().count(head) == 1
+        return
+    assert rc != 0
+    assert what in err and "not yet ported" in err and "scaled" in err
     assert not out.exists() or out.read_bytes() == b""
 
 

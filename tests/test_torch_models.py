@@ -202,13 +202,18 @@ def test_sixel_model_takes_tensors_and_a_device():
 
 
 def test_registry_and_not_ported():
-    assert models.available() == ["half", "quarter", "sixel"]
+    """Every model of the JAX package is registered, kitty and iterm2
+    too (refused until they were ported; their payloads:
+    tests/test_torch_pixel.py); an unknown name raises."""
+    import timg_tpu.models as jmodels
+
+    assert models.available() == jmodels.available() == [
+        "half", "iterm2", "kitty", "quarter", "sixel"]
     assert models.get("sixel") is models.SixelModel
     assert models.get("quarter") is models.QuarterBlockModel
     assert models.get("half") is models.HalfBlockModel
-    for name in ("kitty", "iterm2"):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            models.get(name)
+    assert models.get("kitty") is models.KittyModel
+    assert models.get("iterm2") is models.ITerm2Model
     with pytest.raises(KeyError):
         models.get("nope")
 

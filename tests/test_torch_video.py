@@ -166,11 +166,16 @@ def test_other_dithers_not_yet_ported(mode):
                                         _opts(mode), {})
 
 
-def test_sws_resample_not_yet_ported():
+def test_sws_resample_not_yet_ported(jax_device_window):
+    """--resample=sws-bitexact's window, refused until the sws kernel
+    was ported, now runs and equals the JAX package's device window (the
+    other windows and geometries: tests/test_torch_sws.py)."""
     ys, us, vs = _window(5, 1, 12, 16)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tcache.prime_sixel_video_device(ys, us, vs, 6, 8, False, _opts(),
-                                        {}, resample="sws")
+    want = jcache.prime_sixel_video_device(ys, us, vs, 6, 8, False, _opts(),
+                                           {}, resample="sws")
+    got = tcache.prime_sixel_video_device(ys, us, vs, 6, 8, False, _opts(),
+                                          {}, resample="sws")
+    _pop_equal(got, want, 6, 8)
 
 
 def test_device_frame_materializes_one_frame():

@@ -13,17 +13,20 @@ their imports rewritten.  tests/test_torch_isolation.py holds it to that.
 Slices ported so far: stills and animations (QOI and what Pillow
 decodes, with the grid contact sheet, auto-crop, ``-a`` and scroll) and
 the sustained loop on 4:2:0 video, in ``-p sixel`` with every
-``--dither`` mode (cube, libsixel, adaptive, auto) and in ``-p quarter``
-/ ``-p half``; the library API's sixel and block models
-(``models.get("sixel"|"quarter"|"half")``).  Decode runs on the host,
-everything after it on the device, small stills included.
+``--dither`` mode (cube, libsixel, adaptive, auto), in ``-p quarter``
+/ ``-p half`` and in ``-p kitty`` / ``-p iterm2``, video also with
+``--resample=sws-bitexact``; the library API's sixel, block, kitty and
+iterm2 models (``models.get(...)``).  Decode and the PNG encode run on
+the host, everything between them on the device, small stills
+included.
 
 Layer map (entry point down to the device):
 
   cli.py                 -- flag surface & session orchestration
                             (twin of timg_tpu/cli.py; the grid collector)
   models/                -- library API: SixelModel (render_batch,
-                            render_batch_yuv), the block models
+                            render_batch_yuv), the block models, the
+                            kitty and iTerm2 models
   sources/base.py        -- source factory: QOI, Pillow, video; names the
                             JAX package's decoders not yet ported
   sources/pil_source.py  -- Pillow decode (JPEG draft, EXIF, ICO, GIF
@@ -33,14 +36,21 @@ Layer map (entry point down to the device):
   sources/batch.py       -- grid contact sheet: one resize a geometry
   sources/scroll.py      -- scroll windows as rolls on the device
   sources/video_source.py-- libav decode -> 8-frame YUV windows
-  render/plane_cache.py  -- per-window device flow: convert -> resize ->
-                            dither (cube | libsixel | adaptive) -> fetch,
-                            or the block cells; the RGBA windows of
+  render/plane_cache.py  -- per-window device flow: convert -> resize
+                            (or the sws kernel) -> dither (cube |
+                            libsixel | adaptive) -> fetch, the block
+                            cells, or the pixel window's words fetched
+                            frame by frame in the encode pool; the RGBA
+                            windows of
                             stills, animations and scroll;
                             DeviceFrame placeholders, PlaneCache
   render/sixel_render.py -- SixelCanvas; C sixel assembly (native/) or
                             its Python twin, from planes or run records;
                             the DCS bands' splice
+  render/{kitty,iterm2}.py -- kitty and iTerm2 canvases (PNG in the
+                            compression pool; kitty's ids and tmux)
+  render/{png,png_core}.py -- PNG writer: native Sub filter, libdeflate
+                            or zlib
   render/{canvas,sequencer,renderer}.py -- pacing and cursor control
   ops/sixel_runs.py      -- device->host transport (plane, run records or
                             DCS bands; TIMG_TPU_SIXEL_TRANSPORT) + STATS;
@@ -50,6 +60,10 @@ Layer map (entry point down to the device):
                             CUDA kernels (ops/sixel_dcs_kernel.py,
                             csrc/sixel_dcs.cu)
   ops/yuv.py             -- BT.601 4:2:0 -> RGBA words (torch integer ops)
+  ops/sws_resize.py      -- --resample=sws-bitexact: swscale's plan and
+                            plain version; CUDA kernel
+                            (ops/sws_kernel.py, csrc/sws_yuv420.cu);
+                            ops/sws_model.py, the scalar oracle (copy)
   ops/pipeline.py        -- resize_compose (library API)
   ops/resize.py          -- video tap tables + plain torch resize;
                             stb-exact RGBA resize, nearest (torch ops)

@@ -6,13 +6,14 @@ jax-only parts (compile cache, forced-host pinning, JAX profiler hook,
 wedged-device exit) are gone.  The ported slices show stills and
 animations (QOI and everything Pillow decodes: PNG, JPEG, GIF, BMP,
 WebP, TIFF, ICO; with ``--grid``, ``--auto-crop``, ``-a``, ``--scroll``,
-``-U``/``-W``, ``--title`` and ``--frames``) and opaque 4:2:0 video, in
-``-p sixel`` with every ``--dither`` mode (cube, libsixel, adaptive, and
-auto, which resolves to one of the latter two as the JAX CLI resolves
-it) and in ``-p quarter`` / ``-p half``.  Decode runs on the host and
-everything after it on the device, small stills included.  Kitty,
-iTerm2, ``--resample=sws*``, ``--serve``, ``--devices`` and the unported
-decoders exit with a "not yet ported" message.
+``-U``/``-W``, ``--title`` and ``--frames``) and opaque 4:2:0 video
+(with ``--resample=sws-bitexact`` too), in ``-p sixel`` with every
+``--dither`` mode (cube, libsixel, adaptive, and auto, which resolves
+to one of the latter two as the JAX CLI resolves it), in ``-p quarter``
+/ ``-p half`` and in ``-p kitty`` / ``-p iterm2``.  Decode and the PNG
+encode run on the host and everything between them on the device, small
+stills included.  ``--resample=sws``, ``--serve``, ``--devices`` and
+the unported decoders exit with a "not yet ported" message.
 The device is ``cuda`` unless TIMG_TPU_TORCH_DEVICE=cpu.
 """
 
@@ -31,7 +32,8 @@ from timg_tpu_torch.args import _BARE, _getopt_optional_args, build_arg_parser
 from timg_tpu_torch.colors import parse_color
 from timg_tpu_torch.options import (NOT_INITIALIZED, ClearScreen,
                                     DisplayOptions, Pixelation,
-                                    PresentationOptions, is_pixel_direct)
+                                    PresentationOptions, is_pixel_direct,
+                                    is_pixel_direct_with_alpha)
 from timg_tpu_torch.render.sequencer import BufferedWriteSequencer
 
 # Exit codes (ref timg.cc:98-106).
@@ -127,8 +129,7 @@ def append_to_filelist(filelist_file: str, relative_to_filelist: bool,
 
 
 def _not_ported(what: str) -> int:
-    print(f"timg-tpu-torch: {what} is not yet ported to timg_tpu_torch "
-          "(this build runs -p sixel, -p quarter and -p half)",
+    print(f"timg-tpu-torch: {what} is not yet ported to timg_tpu_torch",
           file=sys.stderr)
     return EXIT_PARAMETER_ERROR
 
@@ -162,8 +163,9 @@ def main(argv: Optional[List[str]] = None) -> int:
         return EXIT_SUCCESS
     if args.devices:
         return _not_ported("--devices")
-    if args.resample != "auto":
-        return _not_ported(f"--resample={args.resample}")
+    if args.resample == "sws":
+        return _not_ported("--resample=sws (the host swscale leg and its "
+                           "'scaled' video window)")
 
     from timg_tpu_torch.ops import backend
     try:
@@ -352,12 +354,16 @@ def main(argv: Optional[List[str]] = None) -> int:
             elif ginfo.preferred_graphics == "sixel":
                 present.pixelation = Pixelation.SIXEL
                 present.sixel_options = ginfo.sixel
+    elif present.pixelation == Pixelation.KITTY:
+        from timg_tpu_torch.term import query_supported_graphics_protocol
+        present.tmux_workaround = query_supported_graphics_protocol().in_tmux
     elif present.pixelation == Pixelation.SIXEL:
         from timg_tpu_torch.term import query_supported_graphics_protocol
         present.sixel_options = query_supported_graphics_protocol().sixel
-    if present.pixelation in (Pixelation.KITTY, Pixelation.ITERM2):
-        return _not_ported(f"-p {_pixelation_name(present.pixelation)}")
 
+    if (is_pixel_direct_with_alpha(present.pixelation)
+            and bg_color.lower() == "auto"):
+        bg_color = "none"  # ref timg.cc:810-813
     if bg_color.lower() == "none":
         display.local_alpha_handling = False
 
@@ -608,16 +614,26 @@ def _present_images(loaded, display, present, sequencer):
 
 
 def _make_canvas(sequencer, display, present):
-    """The port's sixel canvas with a compression pool sized
-    queue_len + 1, or its unicode block canvas, like
+    """The port's kitty, iTerm2 or sixel canvas with a compression pool
+    sized queue_len + 1, or its unicode block canvas, like
     timg_tpu/cli.py:_make_canvas."""
+    def compression_pool():
+        # pool sized queue_len + 1, like the reference (timg.cc:321-336)
+        return ThreadPoolExecutor(max_workers=sequencer.max_queue_len + 1)
+
+    if present.pixelation == Pixelation.KITTY:
+        from timg_tpu_torch.render.kitty import KittyCanvas
+        return KittyCanvas(sequencer, present.tmux_workaround, display,
+                           executor=compression_pool())
+    if present.pixelation == Pixelation.ITERM2:
+        from timg_tpu_torch.render.iterm2 import ITerm2Canvas
+        return ITerm2Canvas(sequencer, display, executor=compression_pool())
     if present.pixelation == Pixelation.SIXEL:
         from timg_tpu_torch.render.sixel_render import SixelCanvas
 
         return SixelCanvas(sequencer, present.sixel_options, display,
                            dither=present.sixel_dither,
-                           executor=ThreadPoolExecutor(
-                               max_workers=sequencer.max_queue_len + 1))
+                           executor=compression_pool())
     from timg_tpu_torch.render.ansi import UnicodeBlockCanvas
 
     return UnicodeBlockCanvas(

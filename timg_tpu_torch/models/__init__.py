@@ -9,27 +9,25 @@ hand a model a frame batch, it returns per-frame escape payloads.
                                                dither="cube")
     payloads = model.render_batch(frames_u8)   # [B,H,W,4] -> list[bytes]
 
-The sixel, half and quarter models are ported; ``get`` of the JAX
-package's other names (kitty, iterm2) raises "not yet ported".
+Every model of the JAX package is ported: half, quarter, sixel, kitty
+and iterm2.
 """
 
 from timg_tpu_torch.models.blocks import (HalfBlockModel,  # noqa: F401
                                           QuarterBlockModel)
-from timg_tpu_torch.models.pixel import SixelModel  # noqa: F401
+from timg_tpu_torch.models.pixel import (ITerm2Model,  # noqa: F401
+                                         KittyModel, SixelModel)
 
 _REGISTRY = {
     "half": HalfBlockModel,
     "quarter": QuarterBlockModel,
     "sixel": SixelModel,
+    "kitty": KittyModel,
+    "iterm2": ITerm2Model,
 }
-
-_NOT_PORTED = ("kitty", "iterm2")
 
 
 def get(name: str):
-    if name in _NOT_PORTED:
-        from timg_tpu_torch.render.plane_cache import not_ported
-        raise not_ported(f"the {name!r} model")
     return _REGISTRY[name]
 
 

@@ -1,5 +1,5 @@
 """Pixel-direct protocol models of the port (counterpart of
-timg_tpu/models/pixel.py): the sixel model so far.
+timg_tpu/models/pixel.py): sixel, kitty and iTerm2.
 
 A model holds an explicit ``torch.device`` (``cuda`` unless the caller
 passes ``device=`` or sets TIMG_TPU_TORCH_DEVICE=cpu, ops/backend.py)
@@ -8,7 +8,10 @@ compose (``render_batch``), or the 4:2:0 convert and the lean video
 resize (``render_batch_yuv``), then the FS dither of the model's mode on
 the frames' first three channels.  Median-cut trees are built on the
 host (ops/sixel_np.py), the index planes come back as uint8, and the
-sixel bytes are assembled on the host (render/sixel_render.py).
+sixel bytes are assembled on the host (render/sixel_render.py).  The
+kitty and iTerm2 models fetch the resized and composed frames in one
+copy and encode each as a PNG on the host (render/png.py), as the JAX
+package does.
 """
 
 from __future__ import annotations
@@ -114,4 +117,40 @@ class SixelModel(_PixelModel):
             idx = sixel_op.fs_dither_tree(x[i:i + 1], levels, leaves,
                                           out_u8=True)[0].cpu().numpy()
             out.append(encode_sixel_stream(idx, palette))
+        return out
+
+
+class KittyModel(_PixelModel):
+    def render_batch(self, frames) -> List[bytes]:
+        """[B, H, W, 4] uint8 frames (numpy or a tensor) -> one kitty
+        graphics payload per frame, image ids 1 .. B."""
+        import base64
+
+        from timg_tpu_torch.render.png import encode_png
+
+        out = []
+        for i, frame in enumerate(self._resized(frames).cpu().numpy()):
+            png = encode_png(frame, self.compress_level, with_alpha=True)
+            payload = bytearray(b"\033_Ga=T,i=%d,q=2,f=100,m=0;" % (i + 1))
+            payload += base64.b64encode(png)
+            payload += b"\033\\"
+            out.append(bytes(payload))
+        return out
+
+
+class ITerm2Model(_PixelModel):
+    def render_batch(self, frames) -> List[bytes]:
+        """[B, H, W, 4] uint8 frames (numpy or a tensor) -> one iTerm2
+        inline-image payload per frame."""
+        import base64
+
+        from timg_tpu_torch.render.png import encode_png
+
+        out = []
+        for frame in self._resized(frames).cpu().numpy():
+            png = encode_png(frame, self.compress_level, with_alpha=True)
+            h, w = frame.shape[:2]
+            head = b"\033]1337;File=size=%d;width=%dpx;height=%dpx;inline=1:" \
+                % (len(png), w, h)
+            out.append(head + base64.b64encode(png) + b"\007")
         return out

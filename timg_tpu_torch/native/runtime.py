@@ -129,6 +129,9 @@ def _bind_native(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.timg_libsixel_palette.argtypes = [
         ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_long,
         ctypes.c_int, ctypes.c_void_p]
+    lib.timg_png_sub_filter.argtypes = [
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p]
     return lib
 
 

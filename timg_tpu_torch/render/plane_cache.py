@@ -18,6 +18,15 @@ resize, then the block cells of every frame (ops/blocks.py; the CUDA
 kernel on the card) with the window diff, frame 0 against the previous
 window's last frame; only the glyph, fg, bg and eq planes come back.
 
+The pixel window (kitty and iTerm2 sessions) runs the same convert and
+resize and nothing else: the PNG encode stays on the host, as in the
+JAX package, and each frame's words cross to the host lazily, when the
+canvas's compression-pool worker encodes it.
+
+With ``resample="sws"`` (``--resample=sws-bitexact``) every video
+window makes its words with the swscale-exact kernel
+(ops/sws_resize.py) instead of the convert and the resize.
+
 The frames handed to the sink are DeviceFrame placeholders: the canvas
 needs only their shape and the primed planes, so the RGBA words stay on
 the device unless someone converts a frame to an array.
@@ -37,6 +46,7 @@ libsixel's own C quantizer, as the reference does.
 
 from __future__ import annotations
 
+import os
 from collections import OrderedDict
 from typing import Any, Optional
 
@@ -56,6 +66,7 @@ from timg_tpu_torch.ops.sixel_kernel import (fs_dither_cube_fused,
                                              fs_dither_tree_fused)
 from timg_tpu_torch.ops.sixel_np import median_cut_tree
 from timg_tpu_torch.ops.sixel_runs import fetch_planes_or_runs
+from timg_tpu_torch.ops.sws_resize import sws_yuv420_to_rgba_words
 from timg_tpu_torch.ops.yuv import yuv420_to_rgba_words
 from timg_tpu_torch.utils import get_bool_env
 
@@ -140,20 +151,27 @@ class DeviceFrame:
 class VideoStage(nn.Module):
     """Convert + resize + band padding for one window geometry (the JAX
     package compiled one jit per geometry).  The resize's tap tables are
-    the resize's own, cached per geometry (ops/resize_kernel.py)."""
+    the resize's own, cached per geometry (ops/resize_kernel.py); with
+    ``resample="sws"`` the swscale-exact kernel makes the words in one
+    step, its plan's tables cached per geometry (ops/sws_kernel.py)."""
 
     def __init__(self, th: int, tw: int, full_range: bool, padded_h: int,
-                 bg_word: int):
+                 bg_word: int, resample: str = "lean"):
         super().__init__()
         self.th, self.tw = th, tw
         self.full_range = full_range
         self.padded_h = padded_h
         self.bg_word = bg_word
+        self.resample = resample
 
     def forward(self, y: torch.Tensor, u: torch.Tensor,
                 v: torch.Tensor) -> torch.Tensor:
-        words = yuv420_to_rgba_words(y, u, v, self.full_range)
-        words = resize_video_words(words, self.th, self.tw)
+        if self.resample == "sws":
+            words = sws_yuv420_to_rgba_words(y, u, v, self.th, self.tw,
+                                             self.full_range)
+        else:
+            words = yuv420_to_rgba_words(y, u, v, self.full_range)
+            words = resize_video_words(words, self.th, self.tw)
         if self.padded_h > self.th:
             pad = torch.full((words.shape[0], self.padded_h - self.th,
                               self.tw), self.bg_word, dtype=torch.int32,
@@ -176,8 +194,6 @@ def prime_sixel_video_device(ys, us, vs, th: int, tw: int,
     mode = getattr(options, "sixel_batch_dither", None)
     if mode not in ("cube", "libsixel", "adaptive"):
         raise not_ported(f"--dither={mode}")
-    if resample != "lean":
-        raise not_ported("--resample=sws-bitexact")
     b = ys.shape[0]
     padded_h = th + 5 - (th + 5) % 6
     bg = options.bgcolor_getter() if options.bgcolor_getter else None
@@ -188,7 +204,7 @@ def prime_sixel_video_device(ys, us, vs, th: int, tw: int,
         if bg_word >= 1 << 31:     # RGBA word with alpha set: wrap to
             bg_word -= 1 << 32     # the signed int32 the planes carry
     words = stage_window(state, ys, us, vs, th, tw, full_range, padded_h,
-                         bg_word)                # [B, padded_h, tw]
+                         bg_word, resample)      # [B, padded_h, tw]
     if mode == "cube":
         indices = fs_dither_cube_fused(words, padded_h, tw, out_u8=True)
         palettes, quantizer = [None] * b, None
@@ -216,16 +232,17 @@ def prime_sixel_video_device(ys, us, vs, th: int, tw: int,
 
 
 def stage_window(state: dict, ys, us, vs, th: int, tw: int,
-                 full_range: bool, padded_h: int,
-                 bg_word: int) -> torch.Tensor:
+                 full_range: bool, padded_h: int, bg_word: int,
+                 resample: str = "lean") -> torch.Tensor:
     """The window's planes to the device, through the VideoStage of this
     geometry (kept in ``state``): [B, padded_h, tw] int32 words."""
     dev = backend.device()
     key = (ys.shape[1], ys.shape[2], th, tw, full_range, padded_h, bg_word,
-           dev)
+           resample, dev)
     stage = state.get("video_stage")
     if stage is None or stage[0] != key:
-        stage = (key, VideoStage(th, tw, full_range, padded_h, bg_word))
+        stage = (key, VideoStage(th, tw, full_range, padded_h, bg_word,
+                                 resample))
         state["video_stage"] = stage
     planes = [torch.from_numpy(np.ascontiguousarray(p)).to(dev)
               for p in (ys, us, vs)]
@@ -251,14 +268,13 @@ def prime_block_video_device(ys, us, vs, th: int, tw: int,
     quarter = options.cell_x_px == 2
     if quarter and tw % 2:
         return None
-    if resample != "lean":
-        raise not_ported("--resample=sws-bitexact")
     b = ys.shape[0]
     use_upper = get_bool_env("TIMG_USE_UPPER_BLOCK")
     ph = th + th % 2
     top = 1 if (th % 2 and not use_upper) else 0   # blank row on top
 
-    words = stage_window(state, ys, us, vs, th, tw, full_range, th, 0)
+    words = stage_window(state, ys, us, vs, th, tw, full_range, th, 0,
+                         resample)
     tail = state.get("block_tail")
     cells = blocks_op.quarter_cells if quarter else blocks_op.half_cells
     # one fetch of the window's cells; eq[i]: frame i vs frame i-1 or the
@@ -278,6 +294,33 @@ def prime_block_video_device(ys, us, vs, th: int, tw: int,
                                  prevs[i], eqs[i]))
     state["block_tail"] = (words[-1], padded[-1])
     return frames
+
+
+def prime_pixel_video_device(ys, us, vs, th: int, tw: int,
+                             full_range: bool, options, state: dict,
+                             resample: str = "lean"):
+    """Device window for opaque 4:2:0 video in pixel-direct (kitty and
+    iTerm2) sessions (timg_tpu/render/plane_cache.py:
+    prime_pixel_video_device): convert + resize (or the sws kernel) into
+    [B, th, tw] words on the device, returned as B DeviceFrame
+    placeholders.  The PNG encode stays on the host, as the reference
+    runs it (ref kitty-canvas.cc:126-236): each frame's words cross to
+    the host lazily, when the canvas's encode-pool worker reads the
+    placeholder, so one frame's copy overlaps the other workers'
+    deflate.
+
+    Returns None where the window does not apply, as the JAX package
+    does: sixel and block sessions (their own windows), and
+    TIMG_TPU_VIDEO_DEVICE_WINDOW=0.  The port has no host or numpy mode:
+    every window runs on ``backend.device()``."""
+    if getattr(options, "sixel_batch_dither", None) is not None \
+            or options.cell_y_px == 2:
+        return None
+    if os.environ.get("TIMG_TPU_VIDEO_DEVICE_WINDOW", "1") == "0":
+        return None
+    words = stage_window(state, ys, us, vs, th, tw, full_range, th, 0,
+                         resample)
+    return [DeviceFrame(words, i, th, tw) for i in range(ys.shape[0])]
 
 
 def _dither_libsixel(words: torch.Tensor, padded_h: int, tw: int):

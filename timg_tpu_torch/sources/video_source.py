@@ -12,12 +12,16 @@ timestamps at k/fps (:356-360), rewind-and-loop via seek (:302-307),
 When the decoded stream is 8-bit 4:2:0 the raw Y/U/V planes ship to the
 device at 1.5 bytes/pixel and the port's device flow converts and
 resizes them there, then dithers them (sixel sessions,
-render/plane_cache.prime_sixel_video_device) or picks the block cells
-(half and quarter sessions, prime_block_video_device).  Odd-width
-quarter frames come back to the host after the resize, and the canvas
-renders them one by one.  Streams that would take another path in the
-reference (RGBA decode, transparent-capable suffixes, swscale
-resampling) are not yet ported.
+render/plane_cache.prime_sixel_video_device), picks the block cells
+(half and quarter sessions, prime_block_video_device) or hands the
+words to the kitty or iTerm2 canvas, which fetches each frame in its
+encode pool (prime_pixel_video_device).  Odd-width quarter frames come
+back to the host after the resize, and the canvas renders them one by
+one.  ``--resample=sws-bitexact`` makes the words with the
+swscale-exact kernel instead of the convert and the resize, in every
+window.  Streams that would take another path in the reference (RGBA
+decode, transparent-capable suffixes, the host swscale of
+``--resample=sws``) are not yet ported.
 """
 
 from __future__ import annotations
@@ -33,6 +37,7 @@ from timg_tpu_torch.geometry import calc_scale_to_fit
 from timg_tpu_torch.options import NOT_INITIALIZED, DisplayOptions
 from timg_tpu_torch.render.plane_cache import (not_ported,
                                                prime_block_video_device,
+                                               prime_pixel_video_device,
                                                prime_sixel_video_device,
                                                stage_window)
 from timg_tpu_torch.render.sequencer import SeqType
@@ -56,14 +61,16 @@ class VideoSource(ImageSource):
         # across windows: the VideoStage, the adaptive palette, the
         # block window's tail
         self._sixel_state: dict = {}
+        self._sws_device = False
 
     def load_and_scale(self, options: DisplayOptions, frame_offset: int,
                        frame_count: int) -> bool:
         from timg_tpu_torch.native import runtime
 
         resample = getattr(options, "resample", "auto")
-        if resample != "auto":
-            raise not_ported(f"--resample={resample}")
+        if resample == "sws":
+            raise not_ported("--resample=sws (the host swscale leg and "
+                             "its 'scaled' video window)")
         lib = runtime.load_video()
         if lib is None:
             return False
@@ -112,6 +119,12 @@ class VideoSource(ImageSource):
         tw, th, _ = calc_scale_to_fit(self.orig_width, self.orig_height,
                                       options)
         self._target = (tw, th)
+        # --resample=sws-bitexact: the swscale-exact kernel in the same
+        # window as the lean path (ops/sws_resize.py), so the exact mode
+        # pays no extra host traffic; every geometry of a 4:2:0 stream
+        # is modeled (the JAX package's host fallback serves the streams
+        # refused above)
+        self._sws_device = resample == "sws-bitexact"
         self.indentation = (
             int((options.width - tw) / 2)
             if options.center_horizontally else 0
@@ -136,27 +149,34 @@ class VideoSource(ImageSource):
     def _process_window(self, raw: List, kind: str = "rgba"
                         ) -> List[np.ndarray]:
         """One device window: raw = list of (y, u, v) plane triples.
-        The reference's other kinds ("rgba", "scaled") and the
-        pixel-direct sessions are not yet ported."""
+        The reference's other kinds ("rgba", "scaled") are not yet
+        ported."""
         if kind != "yuv":
             raise not_ported(f"the {kind!r} video window")
         tw, th = self._target
         opts = self._options
+        state = self._sixel_state
+        resample = "sws" if self._sws_device else "lean"
         ys = np.stack([f[0] for f in raw])
         us = np.stack([f[1] for f in raw])
         vs = np.stack([f[2] for f in raw])
         if getattr(opts, "sixel_batch_dither", None) is not None:
             return prime_sixel_video_device(ys, us, vs, th, tw,
-                                            self._full_range, opts,
-                                            self._sixel_state)
+                                            self._full_range, opts, state,
+                                            resample=resample)
         fast = prime_block_video_device(ys, us, vs, th, tw, self._full_range,
-                                        opts, self._sixel_state)
+                                        opts, state, resample=resample)
+        if fast is None:
+            fast = prime_pixel_video_device(ys, us, vs, th, tw,
+                                            self._full_range, opts, state,
+                                            resample=resample)
         if fast is not None:
             return fast
-        # odd-width quarter frames: converted and resized on the device,
-        # then rendered one by one by the canvas (opaque: no compose)
-        words = stage_window(self._sixel_state, ys, us, vs, th, tw,
-                       self._full_range, th, 0).cpu().numpy()
+        # odd-width quarter frames, and pixel sessions with
+        # TIMG_TPU_VIDEO_DEVICE_WINDOW=0: converted and resized on the
+        # device, then fetched at once (opaque: no compose)
+        words = stage_window(state, ys, us, vs, th, tw, self._full_range,
+                             th, 0, resample).cpu().numpy()
         return list(words.view(np.uint8).reshape(words.shape + (4,)))
 
     def send_frames(self, duration_ms: float, loops: int,
