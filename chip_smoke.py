@@ -230,23 +230,23 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
-def yuv_frames(n: int, seed: int):
-    """Seeded 4:2:0 planes: moving gradients plus a noise band, so both
-    smooth areas and every dither state occur."""
+def yuv_frames(n: int, seed: int, h: int = IN_H, w: int = IN_W):
+    """Seeded 4:2:0 planes (1080p unless given): moving gradients plus a
+    noise band, so both smooth areas and every dither state occur."""
     import numpy as np
 
     rng = np.random.default_rng(seed)
-    ch, cw = IN_H // 2, IN_W // 2
-    yy, xx = np.mgrid[0:IN_H, 0:IN_W]
+    ch, cw = h // 2, w // 2
+    yy, xx = np.mgrid[0:h, 0:w]
     cy, cx = np.mgrid[0:ch, 0:cw]
-    ys = np.empty((n, IN_H, IN_W), np.uint8)
+    ys = np.empty((n, h, w), np.uint8)
     us = np.empty((n, ch, cw), np.uint8)
     vs = np.empty((n, ch, cw), np.uint8)
     for i in range(n):
-        base = 16 + (xx * 180 // IN_W + yy * 40 // IN_H + 7 * i) % 220
-        noise = rng.integers(0, 24, (IN_H, IN_W))
-        band = slice(IN_H // 3, IN_H // 2)
-        noise[band] = rng.integers(0, 256, (IN_H // 2 - IN_H // 3, IN_W))
+        base = 16 + (xx * 180 // w + yy * 40 // h + 7 * i) % 220
+        noise = rng.integers(0, 24, (h, w))
+        band = slice(h // 3, h // 2)
+        noise[band] = rng.integers(0, 256, (h // 2 - h // 3, w))
         ys[i] = np.clip(base + noise - 12, 0, 255)
         us[i] = 64 + (cx * 128 // cw + 3 * i) % 128
         vs[i] = np.clip(60 + cy * 140 // ch
@@ -649,13 +649,29 @@ def sws_ops(plan, b: int) -> int:
     return b * per
 
 
+def sws_geometries() -> list:
+    """The sws phase's timed geometries: (what, input h and w, output h
+    and w); the quarter sws window's is the block window's fit of 1080p
+    into -g160x48 quarter blocks."""
+    from timg_tpu_torch.geometry import calc_scale_to_fit
+
+    qw, qh, _ = calc_scale_to_fit(IN_W, IN_H, block_options("quarter"))
+    return [("720x1280", IN_H, IN_W, OUT_H, OUT_W),
+            ("720x1279 (full chroma)", IN_H, IN_W, OUT_H, OUT_W - 1),
+            ("1080x1920 (unscaled)", IN_H, IN_W, IN_H, IN_W),
+            (f"{qh}x{qw} (the quarter sws window)", IN_H, IN_W, qh, qw),
+            (f"720x1280 from {H_4K}x{W_4K}", H_4K, W_4K, OUT_H, OUT_W)]
+
+
 def sws_phase(planes) -> dict:
     """The swscale-exact kernel (--resample=sws-bitexact) on the window's
     1080p planes: byte-equal to its plain version on the card in both
     ranges into 720x1280 at B=32 and at the CLI's B=8, into 720x1279 (an
-    odd width: the full-chroma path) and at 1080x1920 (equal size, even
-    height: the unscaled converter); timed by CUDA events over calls and
-    in a CUDA graph beside its bound and the plain version."""
+    odd width: the full-chroma path), at 1080x1920 (equal size, even
+    height: the unscaled converter) and into the quarter sws window's
+    geometry, and on 8 seeded frames of 2160x3840 into 720x1280; timed
+    by CUDA events over calls and in a CUDA graph beside its bound and
+    the plain version."""
     import torch
 
     from timg_tpu_torch.ops import sws_kernel
@@ -663,15 +679,18 @@ def sws_phase(planes) -> dict:
         get_plan, sws_yuv420_to_rgba_words_plain)
 
     window = [p[:N_WINDOW] for p in planes]
+    dev = planes[0].device
+    window_4k = [torch.from_numpy(p).to(dev)
+                 for p in yuv_frames(N_WINDOW, SEED + 5, H_4K, W_4K)]
+    inputs = {IN_H: window, H_4K: window_4k}
     errs = []
-    for what, (oh, ow), batch in (
-            (f"720x1280, B={N_KERNEL}", (OUT_H, OUT_W), planes),
-            (f"720x1280, B={N_WINDOW}", (OUT_H, OUT_W), window),
-            (f"720x1279 (full chroma), B={N_WINDOW}", (OUT_H, OUT_W - 1),
-             window),
-            (f"1080x1920 (unscaled), B={N_WINDOW}", (IN_H, IN_W), window)):
+    cases = [(f"720x1280, B={N_KERNEL}", (OUT_H, OUT_W), planes)] + [
+        (f"{what}, B={N_WINDOW}", (oh, ow), inputs[ih])
+        for what, ih, iw, oh, ow in sws_geometries()]
+    for what, (oh, ow), batch in cases:
+        ih, iw = batch[0].shape[1:]
         for full_range in (False, True):
-            plan = get_plan(IN_W, IN_H, ow, oh, full_range)
+            plan = get_plan(iw, ih, ow, oh, full_range)
             n0 = sws_kernel.LAUNCHES
             got = sws_kernel.sws_yuv420_to_rgba_words_cuda(*batch, plan)
             torch.cuda.synchronize()
@@ -682,11 +701,11 @@ def sws_phase(planes) -> dict:
                 f"sws_yuv420_to_rgba_words {what} (full_range={full_range})",
                 got, sws_yuv420_to_rgba_words_plain(*batch, oh, ow,
                                                     full_range)))
-        print(f"kernels: sws_yuv420_to_rgba_words {IN_H}x{IN_W} -> {what}, "
+        print(f"kernels: sws_yuv420_to_rgba_words {ih}x{iw} -> {what}, "
               f"template {plan.template}, both ranges: equal to plain")
 
-    def nbytes(b, oh, ow):   # the three planes in, the words out
-        return b * (IN_H * IN_W * 3 // 2 + oh * ow * 4)
+    def nbytes(b, ih, iw, oh, ow):   # the three planes in, the words out
+        return b * (ih * iw * 3 // 2 + oh * ow * 4)
 
     def call(batch, plan):
         return lambda: sws_kernel.sws_yuv420_to_rgba_words_cuda(*batch, plan)
@@ -696,24 +715,23 @@ def sws_phase(planes) -> dict:
              plain_ms=cuda_ms(lambda: sws_yuv420_to_rgba_words_plain(
                  *planes, OUT_H, OUT_W, False), 2),
              library_ms=None,     # no PyTorch call computes it
-             **bound(nbytes(N_KERNEL, OUT_H, OUT_W),
+             **bound(nbytes(N_KERNEL, IN_H, IN_W, OUT_H, OUT_W),
                      sws_ops(plan, N_KERNEL), INT32_OPS_PER_S))
-    for what, (oh, ow) in (("720x1280", (OUT_H, OUT_W)),
-                           ("720x1279 (full chroma)", (OUT_H, OUT_W - 1)),
-                           ("1080x1920 (unscaled)", (IN_H, IN_W))):
-        p = get_plan(IN_W, IN_H, ow, oh, False)
-        ms = cuda_ms(call(window, p), 20)
-        dev_ms = graph_ms(call(window, p))
+    for what, ih, iw, oh, ow in sws_geometries():
+        batch = inputs[ih]
+        p = get_plan(iw, ih, ow, oh, False)
+        ms = cuda_ms(call(batch, p), 20)
+        dev_ms = graph_ms(call(batch, p))
         plain = cuda_ms(lambda: sws_yuv420_to_rgba_words_plain(
-            *window, oh, ow, False), 2)
-        nb = nbytes(N_WINDOW, oh, ow)
+            *batch, oh, ow, False), 2)
+        nb = nbytes(N_WINDOW, ih, iw, oh, ow)
         bb = bound(nb, 0)["bound_ms"]
         bo = bound(0, sws_ops(p, N_WINDOW), INT32_OPS_PER_S)["bound_ms"]
-        print(f"kernels: sws_yuv420_to_rgba_words {IN_H}x{IN_W} -> {what} "
+        print(f"kernels: sws_yuv420_to_rgba_words {ih}x{iw} -> {what} "
               f"at the CLI's window, B={N_WINDOW}: {ms:.6f} ms by events, "
               f"{dev_ms:.6f} ms device (CUDA graph), plain {plain:.6f} ms; "
               f"byte bound {bb:.6f} ms ({nb / 1e6:.2f} MB: "
-              f"{N_WINDOW * IN_H * IN_W * 3 // 2 / 1e6:.2f} in, "
+              f"{N_WINDOW * ih * iw * 3 // 2 / 1e6:.2f} in, "
               f"{N_WINDOW * oh * ow * 4 / 1e6:.2f} out), operation bound "
               f"{bo:.6f} ms ({sws_ops(p, N_WINDOW)} int32)")
     r["graph_ms"] = graph_ms(call(planes, plan))

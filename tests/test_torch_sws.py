@@ -165,14 +165,20 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("sw,sh,dw,dh", GEOS + [(1920, 1080, 1280, 720),
-                                                (1920, 1080, 1279, 720)])
+@pytest.mark.parametrize("sw,sh,dw,dh", GEOS + [
+    (1920, 1080, 1280, 720), (1920, 1080, 1279, 720),
+    (1920, 1080, 320, 90),     # the quarter sws window (-g160x48)
+    (1920, 1080, 170, 96),     # 24 taps each way
+    (3840, 2160, 1280, 720),
+    (1920, 1080, 1280, 710),   # a short last chunk
+    (1920, 24, 24, 12)])       # the wide path (taps in shared memory)
 def test_kernel_matches_plain(cuda_device, sw, sh, dw, dh):
     """The CUDA kernel equals the plain version on the card, both
-    ranges, seeded and flat planes, padded chroma planes too."""
+    ranges, seeded and flat planes at B=2 and seeded at B=1, padded
+    chroma planes too."""
     for full in (False, True):
-        for flat in [None] + FLAT:
-            planes = _torch(_planes(sw + dw, sw, sh, n=2, flat=flat))
+        for n, flat in [(2, None), (1, None)] + [(2, f) for f in FLAT]:
+            planes = _torch(_planes(sw + dw + n, sw, sh, n=n, flat=flat))
             dev = [p.to(cuda_device) for p in planes]
             before = sws_kernel.LAUNCHES
             got = tsws.sws_yuv420_to_rgba_words(*dev, dh, dw, full)
@@ -180,7 +186,7 @@ def test_kernel_matches_plain(cuda_device, sw, sh, dw, dh):
             assert sws_kernel.LAUNCHES == before + 1
             want = tsws.sws_yuv420_to_rgba_words_plain(*planes, dh, dw,
                                                        full)
-            assert torch.equal(got.cpu(), want), (full, flat)
+            assert torch.equal(got.cpu(), want), (full, n, flat)
     y, u, v = _torch(_planes(3, sw, sh, n=2))
     pad = [torch.nn.functional.pad(p, (0, 3, 0, 2), value=9).to(cuda_device)
            for p in (u, v)]

@@ -60,9 +60,9 @@ Layer map (entry point down to the device):
                             CUDA kernels (ops/sixel_dcs_kernel.py,
                             csrc/sixel_dcs.cu)
   ops/yuv.py             -- BT.601 4:2:0 -> RGBA words (torch integer ops)
-  ops/sws_resize.py      -- --resample=sws-bitexact: swscale's plan and
-                            plain version; CUDA kernel
-                            (ops/sws_kernel.py, csrc/sws_yuv420.cu);
+  ops/sws_resize.py      -- --resample=sws-bitexact: swscale's plan, the
+                            kernel's tiling and the plain version; CUDA
+                            kernel (ops/sws_kernel.py, csrc/sws_yuv420.cu);
                             ops/sws_model.py, the scalar oracle (copy)
   ops/pipeline.py        -- resize_compose (library API)
   ops/resize.py          -- video tap tables + plain torch resize;

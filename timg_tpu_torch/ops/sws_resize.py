@@ -88,6 +88,12 @@ class Plan:
         else:
             self.template = 0  # general X
 
+    @functools.cached_property
+    def tiling(self) -> "Tiling":
+        """The kernel's tiling of this (scaled) geometry: strips, chunks,
+        steps, spans and shared-memory layout (``Tiling``)."""
+        return Tiling(self)
+
     def constants(self) -> list:
         """The conversion's six constants in the order the kernel takes
         them: the unscaled or scaled index-table constants (cy, a0, crv,
@@ -104,6 +110,233 @@ class Plan:
             cst = (sws_model.FULL_SCALED if self.full_range
                    else sws_model.MPEG_SCALED)
         return [cst[k] for k in ("cy", "a0", "crv", "cbu", "cgu", "cgv")]
+
+
+THREADS = 256              # the kernel's block
+# horizontal taps a thread can hold in registers (the kernel's KF)
+REG_TAPS = (4, 8, 12, 16, 24, 32)
+SMEM_BUDGET = 48 * 1024    # shared memory a block takes where it can
+SMEM_MAX = 227 * 1024      # and the most an H100 block can have (bytes)
+
+
+def _round16(n: int) -> int:
+    return (n + 15) & ~15
+
+
+class Tiling:
+    """How ``csrc/sws_yuv420.cu`` cuts a scaled geometry (host side).
+
+    A block makes the words of one strip of ``sw`` output columns and
+    one chunk of ``ch`` output rows of one frame.  It walks its chunk in
+    steps; a step brings source rows ``[la, lb)`` of luma and ``[ca,
+    cb)`` of both chroma planes into shared memory (the strip's byte
+    span of each, in 16-byte pieces), runs their horizontal pass once
+    into an int32 ring of 15-bit intermediates (``ring_l`` luma rows of
+    ``sw`` columns, ``ring_c`` chroma rows of ``swc`` columns a plane;
+    source row r in slot (r - the chunk's first row) % ring), then runs
+    the vertical pass and the conversion of output rows ``[oa, ob)``
+    from the ring.  A chunk's first step also makes the rows its first
+    output row shares with the chunk above (its halo); nothing else is
+    made twice in a frame.  The byte rows of step s + 1 load while step
+    s computes.
+
+    Rows come in increasing order, the rows of an output row are all
+    present when it is emitted, and no slot is overwritten while a row
+    still to be read holds it: the ring is at least as deep as the rows
+    any step holds at once (``_ring``).  Spans are mins and maxes of the
+    filters' taps, so they assume no order of the positions; the plan's
+    positions are checked nondecreasing all the same.
+    """
+
+    def __init__(self, plan: Plan):
+        if plan.unscaled:
+            raise ValueError("the unscaled converter takes no tiling")
+        self.fl = plan.h_lum_coef.shape[1]
+        self.fc = plan.h_chr_coef.shape[1]
+        for pos in (plan.h_lum_pos, plan.h_chr_pos, plan.v_lum_pos,
+                    plan.v_chr_pos):
+            if np.any(np.diff(pos) < 0):
+                raise ValueError("an sws filter's positions decrease")
+        for coef in (plan.h_lum_coef, plan.h_chr_coef):
+            # the kernel packs the coefficients as int16 (two taps an
+            # instruction; the wide path's shared memory), and sums the
+            # taps in any order: no sum of a row may wrap
+            if coef.min() < -(1 << 15) or coef.max() >= 1 << 15:
+                raise ValueError("an sws coefficient would not fit int16")
+            if 255 * int(np.abs(coef).astype(np.int64).sum(1).max()) \
+                    >= 1 << 31:
+                raise ValueError("an sws horizontal sum could wrap")
+        taps = max(self.fl, self.fc)
+        # taps in registers, or (0) the wide path: coefficients in
+        # shared memory, staged once a block
+        self.kf = next((k for k in REG_TAPS if k >= taps), 0)
+        x_scale = plan.src_w / plan.dst_w
+        first = 128 if x_scale <= 3 else 64 if x_scale <= 12 else 32
+        # the first layout that fits, preferring the budget, then wide
+        # strips, then many rows a step
+        for budget in (SMEM_BUDGET, SMEM_MAX):
+            sw = first
+            while sw >= 4:
+                for cap in (32, 16, 8, 4, 2, 1):
+                    self._layout(plan, sw, cap)
+                    if self.smem <= budget:
+                        return
+                sw //= 2
+        raise ValueError(
+            f"no sws tiling of {plan.src_w}x{plan.src_h} -> "
+            f"{plan.dst_w}x{plan.dst_h} fits {SMEM_MAX} bytes of shared "
+            "memory")
+
+    def _layout(self, plan: Plan, sw: int, cap: int) -> None:
+        full = plan.full_chroma
+        self.sw = sw
+        self.swc = sw if full else sw // 2
+        self.lanes_c = 2 * self.swc          # both chroma planes
+        self.n_strips = -(-plan.dst_w // sw)
+        # output rows a step emits at most: two passes of the vertical
+        # pass's threads (a thread four words of a row)
+        self.out_rows = 8 * THREADS // sw
+        y_l = plan.src_h / plan.dst_h
+        y_c = plan.chr_src_h / plan.dst_h
+        # rows a step may bring: enough for its output rows
+        self.g_l = max(1, min(cap, int(np.ceil(self.out_rows * y_l)) + 1))
+        self.g_c = max(1, min(cap, int(np.ceil(self.out_rows * y_c)) + 1))
+        # chunks: about sixteen blocks for each of an H100's 132 SMs at
+        # the CLI's 8 frames (several waves, so the last one is short
+        # beside the rest), with the halo at most a quarter of a chunk's
+        # own rows
+        want = -(-16 * 132 // (8 * self.n_strips))
+        ch = max(-(-plan.dst_h // want),
+                 int(np.ceil(4 * (plan.v_lum_size - 1) / y_l)), 1)
+        self.ch = min(ch, plan.dst_h)
+        self.n_chunks = -(-plan.dst_h // self.ch)
+        self._strip_spans(plan)
+        self._steps(plan)
+        self._ring(plan)
+        # a step's output rows' vertical coefficients, luma then chroma
+        vrows = int((self.steps[:, 5] - self.steps[:, 4]).max())
+        parts = [("buf", 2 * (self.g_l * self.stride_l
+                              + 2 * self.g_c * self.stride_c)),
+                 ("vcoef",
+                  vrows * (plan.v_lum_size + plan.v_chr_size) * 4),
+                 ("ring_l", self.ring_l * sw * 4),
+                 ("ring_c", self.ring_c * self.lanes_c * 4)]
+        if self.kf == 0:
+            parts += [("coef_l", self.fl * sw * 2),
+                      ("coef_c", self.fc * self.swc * 2)]
+        off = 0
+        self.offsets = {}
+        for name, size in parts:
+            self.offsets[name] = off
+            off += _round16(size)
+        self.smem = off
+
+    def _strip_spans(self, plan: Plan) -> None:
+        """Each strip's first and last source column of luma and chroma
+        (``span_l``, ``span_c``: [n_strips, 2]), and what the kernel
+        stages (``strips``: [n_strips, 4] int32, the 16-byte-aligned
+        first column and the count of 16-byte pieces through the last
+        column, luma then chroma); a byte row's stride holds the pieces
+        and every register tap past the filter's end."""
+        # a register tap path reads up to 4 bytes past its last tap
+        reads = self.kf + 4 if self.kf else 1
+        spans, strips = [[], []], []
+        stride_l = stride_c = 16
+        for s in range(self.n_strips):
+            row = []
+            for k, (pos, f, x0, n) in enumerate((
+                    (plan.h_lum_pos, self.fl, s * self.sw, self.sw),
+                    (plan.h_chr_pos, self.fc, s * self.sw // (
+                        1 if plan.full_chroma else 2), self.swc))):
+                p = pos[x0:x0 + n].astype(np.int64)
+                first, last = int(p.min()), int(p.max()) + f - 1
+                a0 = first & ~15
+                n16 = (last - a0) // 16 + 1
+                stride = _round16(max(16 * n16, int(p.max()) - a0 + reads))
+                if k == 0:
+                    stride_l = max(stride_l, stride)
+                else:
+                    stride_c = max(stride_c, stride)
+                spans[k].append((first, last))
+                row += [a0, n16]
+            strips.append(row)
+        self.span_l = np.array(spans[0], np.int64)
+        self.span_c = np.array(spans[1], np.int64)
+        self.strips = np.array(strips, np.int32)
+        self.stride_l, self.stride_c = stride_l, stride_c
+
+    def _steps(self, plan: Plan) -> None:
+        """Each chunk's steps (``steps``: [n_steps, 8] int32 la, lb, ca,
+        cb, oa, ob and, once the rings are sized, the ring slots of la
+        and ca; chunk k's are ``chunk_steps[k]`` to ``chunk_steps[k +
+        1]``).  A step takes as many output rows (up to ``out_rows``)
+        as fit in ``g_l`` new luma and ``g_c`` new chroma rows; where
+        not even one fits, it brings that many rows towards the next
+        output row and emits nothing."""
+        last_l = plan.v_lum_pos.astype(np.int64) + plan.v_lum_size - 1
+        last_c = plan.v_chr_pos.astype(np.int64) + plan.v_chr_size - 1
+        steps, starts = [], [0]
+        for k in range(self.n_chunks):
+            o0, o1 = k * self.ch, min((k + 1) * self.ch, plan.dst_h)
+            need_l = np.maximum.accumulate(last_l[o0:o1]) + 1
+            need_c = np.maximum.accumulate(last_c[o0:o1]) + 1
+            lb = int(plan.v_lum_pos[o0:o1].min())
+            cb = int(plan.v_chr_pos[o0:o1].min())
+            o = o0
+            while o < o1:
+                n = 0
+                while (n < self.out_rows and o + n < o1
+                       and need_l[o + n - o0] <= lb + self.g_l
+                       and need_c[o + n - o0] <= cb + self.g_c):
+                    n += 1
+                if n:
+                    nl = max(lb, int(need_l[o + n - 1 - o0]))
+                    nc = max(cb, int(need_c[o + n - 1 - o0]))
+                else:
+                    nl = max(lb, min(lb + self.g_l, int(need_l[o - o0])))
+                    nc = max(cb, min(cb + self.g_c, int(need_c[o - o0])))
+                steps.append((lb, nl, cb, nc, o, o + n, 0, 0))
+                lb, cb, o = nl, nc, o + n
+            starts.append(len(steps))
+        self.steps = np.array(steps, np.int32).reshape(-1, 8)
+        self.chunk_steps = np.array(starts, np.int32)
+
+    def _ring(self, plan: Plan) -> None:
+        """Ring depths: at least every row a step writes, every row from
+        the first an emitted output row reads to the last written so far
+        (``lb``), and a thread's row stride in the horizontal pass; and
+        each step's and each output row's first ring slots (``slots``:
+        [dst_h, 2] int32, luma and chroma)."""
+        ring_l, ring_c = THREADS // self.sw, THREADS // self.lanes_c
+        for la, lb, ca, cb, oa, ob, _, _ in self.steps:
+            ring_l = max(ring_l, lb - la)
+            ring_c = max(ring_c, cb - ca)
+            if ob > oa:
+                ring_l = max(ring_l, lb - int(plan.v_lum_pos[oa:ob].min()))
+                ring_c = max(ring_c, cb - int(plan.v_chr_pos[oa:ob].min()))
+        self.ring_l, self.ring_c = int(ring_l), int(ring_c)
+        # each step's and each output row's first luma and chroma slot
+        chunk = np.arange(plan.dst_h) // self.ch
+        first = self.steps[self.chunk_steps[:-1]]
+        of_step = np.repeat(np.arange(self.n_chunks),
+                            np.diff(self.chunk_steps))
+        self.steps[:, 6] = (self.steps[:, 0] - first[of_step, 0]) \
+            % self.ring_l
+        self.steps[:, 7] = (self.steps[:, 2] - first[of_step, 2]) \
+            % self.ring_c
+        self.slots = np.stack(
+            [(plan.v_lum_pos - first[chunk, 0]) % self.ring_l,
+             (plan.v_chr_pos - first[chunk, 2]) % self.ring_c],
+            1).astype(np.int32)
+
+    def params(self) -> list:
+        """The kernel's int parameters, in the order of ``struct Tile``
+        in csrc/sws_yuv420.cu."""
+        o = self.offsets
+        return [self.sw, self.kf, self.g_l, self.g_c, self.stride_l,
+                self.stride_c, self.ring_l, self.ring_c, o["ring_l"],
+                o["ring_c"], o["vcoef"], o.get("coef_l", 0),
+                o.get("coef_c", 0), self.smem, self.n_strips, self.n_chunks]
 
 
 @functools.lru_cache(maxsize=32)

@@ -44,16 +44,16 @@ def _package_modules() -> dict:
             if k == PKG or k.startswith(PKG + ".")}
 
 
-def import_checkout(checkout: str):
-    """``timg_tpu_torch.ops.sixel_runs`` of another checkout, with the
-    modules it imports from its own package; this checkout's modules
-    are back in ``sys.modules`` on return."""
+def import_checkout(checkout: str, name: str = "ops.sixel_runs"):
+    """``timg_tpu_torch.<name>`` of another checkout, with the modules
+    it imports from its own package; this checkout's modules are back in
+    ``sys.modules`` on return."""
     mine = _package_modules()
     for k in mine:
         del sys.modules[k]
     sys.path.insert(0, checkout)
     try:
-        module = importlib.import_module(PKG + ".ops.sixel_runs")
+        module = importlib.import_module(f"{PKG}.{name}")
     finally:
         sys.path.remove(checkout)
         for k in _package_modules():
