@@ -84,7 +84,18 @@ only the port (timg_tpu_torch), never jax or the JAX package.  Phases:
    --resample=sws-bitexact (the sws kernel in place of the convert and
    the resize, which must not launch).  Each mode's stream must equal
    the same windows run with TIMG_TPU_TORCH_DEVICE=cpu in a subprocess
-   (kitty ids pinned in both);
+   (kitty ids pinned in both).  Then the RGBA and scaled video windows
+   (VideoSource._process_window, as -g160x48 -b black -B gray runs
+   them): two 8-frame windows of seeded 1080p RGBA frames in cube,
+   libsixel, adaptive, quarter, half and kitty, once as an opaque
+   codec's (the lean resize, K1, on RGBA words; the background must
+   never be asked for) and once as a transparent-capable file's with an
+   alpha ramp and a transparent band (the stb resize, the one-scalar
+   probe, the background and the compose; K1 must not launch); then one
+   window of display-size frames (--resample=sws's host swscale) in
+   cube and quarter, each split into its legs (stack + H2D + fetch,
+   resize, probe and compose, primers, emit; host clock and CUDA
+   events); each stream must equal its CPU child's;
 4. library path: timg_tpu_torch.models.get("sixel") at 720x1280 on 8
    seeded 1080p RGBA frames with a transparent region (bg opaque black),
    in cube, adaptive (a tree per frame) and adaptive with
@@ -103,7 +114,12 @@ only the port (timg_tpu_torch), never jax or the JAX package.  Phases:
    windows in libsixel; a 1021x767 still in each forced transport; in
    -pk and -pi the JPEG, the alpha PNG with -b none and with the
    checkerboard, the GIF in -pk (the flip-flop ids) and the grid in
-   -pi (kitty ids pinned before every run).  Each stream must equal the
+   -pi (kitty ids pinned before every run); the decoders beside Pillow
+   and QOI, each in -pq and -ps on files written from the seed: a
+   Radiance HDR, a 10-bit DPX, an XWD, a MIFF, a two-layer XCF, a text
+   page, and where the host has their library an SVG (librsvg), a
+   Letter PDF (poppler-glib) and the page in PostScript (gs); which of
+   those libraries the host has is printed.  Each stream must equal the
    same run on the CPU in a child; then the photo's time to first frame
    in libsixel, cube and -pk (the whole run, and by legs), a fresh
    process's start, and the still path's torch ops (stb resize,
@@ -122,6 +138,7 @@ card's nvidia-smi line, and as the last line
 """
 
 import contextlib
+import functools
 import hashlib
 import json
 import os
@@ -145,6 +162,23 @@ WARP_ROWS = 32          # rows of one warp of the f32 dither
 N_MAIN = {"cube": 16, "libsixel": 8, "adaptive": 8, "quarter": 16,
           "half": 16, "kitty": 16, "iterm2": 16, "cube sws": 8,
           "quarter sws": 8, "kitty sws": 8}
+# the RGBA and scaled video windows: 1080p RGBA frames (an opaque
+# codec's, and a transparent-capable file's with an alpha ramp and a
+# transparent band) in two 8-frame windows of each mode, and one window
+# of display-size frames (--resample=sws) in a sixel and a block mode;
+# run name -> (mode, frames, content)
+RGBA_MODES = ("cube", "libsixel", "adaptive", "quarter", "half", "kitty")
+RGBA_RUNS = {f"{mode} {content}": (mode, n, content)
+             for content, modes, n in (("rgba", RGBA_MODES, 16),
+                                       ("rgba alpha", RGBA_MODES, 16),
+                                       ("scaled", ("cube", "quarter"), 8))
+             for mode in modes}
+# a mode's kernels on frames that arrive as RGBA (no convert); the
+# opaque codec's window adds the lean resize (K1)
+RGBA_KERNELS = {"cube": ("dither",), "libsixel": ("bucket", "table"),
+                "adaptive": ("tree",), "quarter": ("quarter_cells",),
+                "half": ("half_cells",), "kitty": ()}
+BG_QUERIES = [0]            # calls of the background getter in a run
 PIXEL_MODES = ("kitty", "iterm2")
 # the escape that opens each image of a pixel mode's stream
 PIXEL_HEADS = {"kitty": b"\033_Ga=T", "iterm2": b"\033]1337;File="}
@@ -271,6 +305,34 @@ def flat_yuv_frames(n: int):
     return ys, us, us.copy()
 
 
+@functools.lru_cache(maxsize=2)
+def video_rgba_frames(n: int, seed: int, alpha: bool, h: int = IN_H,
+                      w: int = IN_W):
+    """Seeded RGBA frames as the video helper's swscale hands them over
+    (1080p unless given): gradients plus noise; with ``alpha``, alpha
+    falling from 254 to 0 across a moving box and a fully transparent
+    band, as an APNG or a GIF carries them.  Made once for the runs of
+    every mode (read only)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w]
+    out = np.empty((n, h, w, 4), np.uint8)
+    for i in range(n):
+        for c in range(3):
+            out[i, ..., c] = (xx * (70 + 40 * c) // w + yy * (80 - 20 * c)
+                              // h + 19 * i + 30 * c
+                              + rng.integers(0, 28, (h, w))) % 256
+        out[i, ..., 3] = 255
+        if alpha:
+            bh, bw = h // 2, w // 3
+            y0, x0 = h // 8 + 5 * i, w // 8 + 9 * i
+            out[i, y0:y0 + bh, x0:x0 + bw, 3] = np.linspace(
+                254, 0, bw).astype(np.uint8)[None, :]
+            out[i, h - h // 6:, :, 3] = 0
+    return out
+
+
 def block_options(mode: str):
     """The CLI's display options for ``-g160x48 -p quarter|half``."""
     from timg_tpu_torch.options import DisplayOptions
@@ -366,9 +428,109 @@ def timed_pixel_legs(legs: dict):
             setattr(owner, attr, fn)
 
 
+RGBA_LEGS = ("frames", "stack", "h2d", "resize", "probe_compose", "fetch",
+             "primers", "emit")
+# the RGBA window's legs in the order it runs them, each the span between
+# two marks of timed_rgba_legs ("device in": the first step on the card,
+# the resize, or the probe where the frames come at display size)
+RGBA_SPANS = {"stack": ("window in", "stack out"),
+              "h2d": ("stack out", "device in"),
+              "resize": ("_resize in", "_resize out"),
+              "probe_compose": ("_composed in", "_composed out"),
+              "fetch": ("_composed out", "_prime_and_list in"),
+              "primers": ("_prime_and_list in", "_prime_and_list out")}
+
+
+@contextlib.contextmanager
+def timed_rgba_legs(legs: dict):
+    """While open, the RGBA and scaled windows' legs add their seconds to
+    ``legs`` on the host clock (synchronized at each mark) and by CUDA
+    events (key + " events"): "stack" (np.stack of the window's frames
+    on the host), "h2d" (torch.from_numpy and the copy to the card),
+    "resize" (VideoSource._resize: K1 or the stb resize), "probe_compose"
+    (VideoSource._composed: the one-scalar probe and, where a pixel is
+    transparent, the background and the compose), "fetch" (the one
+    copy of the frames to the host for the canvas) and "primers" (the
+    block or sixel primers on the resident frames)."""
+    import numpy as np
+    import torch
+
+    from timg_tpu_torch.sources import video_source
+
+    marks = {}
+
+    def mark(name):
+        torch.cuda.synchronize()
+        event = torch.cuda.Event(enable_timing=True)
+        event.record()
+        marks[name] = (time.perf_counter(), event)
+
+    def marked(name, fn):
+        def run(*args, **kwargs):
+            mark(name + " in")
+            out = fn(*args, **kwargs)
+            mark(name + " out")
+            return out
+        return run
+
+    def window(fn):
+        def run(*args, **kwargs):
+            marks.clear()
+            out = marked("window", fn)(*args, **kwargs)
+            marks["device in"] = marks.get("_resize in",
+                                           marks["_composed in"])
+            for key, (a, b) in RGBA_SPANS.items():
+                if a in marks and b in marks:   # "scaled": no resize
+                    (t0, e0), (t1, e1) = marks[a], marks[b]
+                    legs[key] += t1 - t0
+                    legs[key + " events"] += e0.elapsed_time(e1) / 1e3
+            return out
+        return run
+
+    class TimedNumpy:       # the window's np.stack ends the "stack" leg
+        def __getattr__(self, attr):
+            return getattr(np, attr)
+
+        @staticmethod
+        def stack(*args, **kwargs):
+            out = np.stack(*args, **kwargs)
+            mark("stack out")
+            return out
+
+    cls = video_source.VideoSource
+    attrs = ("_process_window", "_resize", "_composed", "_prime_and_list")
+    saved = {attr: getattr(cls, attr) for attr in attrs}
+    for key in RGBA_SPANS:
+        legs.setdefault(key + " events", 0.0)
+    cls._process_window = window(saved["_process_window"])
+    for attr in attrs[1:]:
+        setattr(cls, attr, marked(attr, saved[attr]))
+    video_source.np = TimedNumpy()
+    try:
+        yield
+    finally:
+        video_source.np = np
+        for attr, fn in saved.items():
+            setattr(cls, attr, fn)
+
+
 def print_legs(mode: str, legs: list) -> None:
-    pixel = mode in PIXEL_MODES
+    pixel = mode.split(" ")[0] in PIXEL_MODES
+    rgba = mode.endswith(("rgba", "rgba alpha", "scaled"))
     for k, leg in enumerate(legs):
+        if rgba:
+            spans = [key for key in RGBA_SPANS
+                     if key != "resize" or not mode.endswith("scaled")]
+            print(f"main path: {mode} window {k} legs (host clock, "
+                  f"synchronized at each leg: " + ", ".join(
+                      f"{key} {leg[key] * 1e3:.3f} ms" for key in spans)
+                  + "; CUDA events: " + ", ".join(
+                      f"{key} {leg[key + ' events'] * 1e3:.3f} ms"
+                      for key in spans if key != "stack")
+                  + f"; frames {leg['frames'] * 1e3:.3f} ms, emit "
+                  f"{leg['emit'] * 1e3:.3f} ms on the host clock"
+                  + (", the pool's PNGs included" if pixel else "") + ")")
+            continue
         print(f"main path: {mode} window {k} legs (host clock, synchronized"
               + ("; fetch and png summed over the pool's workers" if pixel
                  else "") + "): " + ", ".join(
@@ -386,16 +548,23 @@ def pin_kitty_ids() -> None:
 
 def main_path_stream(mode: str, n: int, legs: list = None,
                      content: str = "seeded") -> bytes:
-    """n frames of 1080p (``yuv_frames``, or ``flat_yuv_frames`` with
-    content "flat") through the port's video window, in 8-frame
-    windows, dithered in ``mode`` into the port's SixelCanvas, in
-    quarter or half blocks into its UnicodeBlockCanvas, or into its
-    KittyCanvas or ITerm2Canvas (each with the CLI's compression pool);
-    a mode ending in " sws" runs --resample=sws-bitexact.  Returns the
-    written stream.  Given a list ``legs`` in a block or pixel mode,
-    appends each window's legs in seconds (BLOCK_LEGS or PIXEL_LEGS: the
-    planes' making, a window's share; ``timed_block_legs`` or
-    ``timed_pixel_legs``; the block canvas's emit of its frames)."""
+    """n frames through the port's video window, in 8-frame windows,
+    dithered in ``mode`` into the port's SixelCanvas, in quarter or half
+    blocks into its UnicodeBlockCanvas, or into its KittyCanvas or
+    ITerm2Canvas (each with the CLI's compression pool); a mode ending
+    in " sws" runs --resample=sws-bitexact.  ``content``: "seeded"
+    (``yuv_frames``) or "flat" (``flat_yuv_frames``) 1080p 4:2:0 planes
+    in "yuv" windows; "rgba" (an opaque codec's 1080p RGBA frames) or
+    "rgba alpha" (a transparent-capable file's, ``video_rgba_frames``)
+    in "rgba" windows; "scaled" (display-size RGBA frames, as
+    --resample=sws's host swscale makes them) in "scaled" windows.  The
+    RGBA contents run under -b black with a grey checkerboard (-B
+    gray); BG_QUERIES counts the background getter's calls.  Returns the
+    written stream.  Given a list ``legs`` in a block, pixel or RGBA
+    run, appends each window's legs in seconds (BLOCK_LEGS, PIXEL_LEGS
+    or RGBA_LEGS: the frames' or planes' making, a window's share;
+    ``timed_block_legs``, ``timed_pixel_legs`` or ``timed_rgba_legs``;
+    the canvas's emit of its frames)."""
     from concurrent.futures import ThreadPoolExecutor
 
     from timg_tpu_torch.colors import parse_color
@@ -410,6 +579,7 @@ def main_path_stream(mode: str, n: int, legs: list = None,
     from timg_tpu_torch.sources.video_source import _WINDOW, VideoSource
 
     base, _, resample = mode.partition(" ")
+    rgba = content not in ("seeded", "flat")
     if base in BLOCK_MODES:
         opts = block_options(base)
     else:
@@ -419,22 +589,41 @@ def main_path_stream(mode: str, n: int, legs: list = None,
         if base not in PIXEL_MODES:
             opts.sixel_batch_dither = base
     bg = parse_color("black")
-    opts.bgcolor_getter = lambda: bg
+
+    def bg_getter():
+        BG_QUERIES[0] += 1
+        return bg
+    opts.bgcolor_getter = bg_getter
+    if rgba:
+        opts.bg_pattern_color = parse_color("gray")     # -B gray
     tw, th, _ = calc_scale_to_fit(IN_W, IN_H, opts)
 
-    src = VideoSource("chip-smoke.y4m")
+    alpha = content == "rgba alpha"
+    src = VideoSource("chip-smoke.png" if alpha else "chip-smoke.y4m")
     src._options = opts
     src._target = (tw, th)
     src._full_range = False
     src._sws_device = resample == "sws"
+    src._transparent_suffix = alpha
     pin_kitty_ids()
     t0 = time.perf_counter()
-    ys, us, vs = (yuv_frames(n, SEED + 1) if content == "seeded"
-                  else flat_yuv_frames(n))
+    if content == "scaled":
+        frames = video_rgba_frames(n, SEED + 7, False, th, tw)
+    elif rgba:
+        frames = video_rgba_frames(n, SEED + 5, alpha)
+    else:
+        ys, us, vs = (yuv_frames(n, SEED + 1) if content == "seeded"
+                      else flat_yuv_frames(n))
     planes_s = (time.perf_counter() - t0) * _WINDOW / n
-    timing = legs is not None and base in (*BLOCK_MODES, *PIXEL_MODES)
-    leg_names = PIXEL_LEGS if base in PIXEL_MODES else BLOCK_LEGS
-    timer = timed_pixel_legs if base in PIXEL_MODES else timed_block_legs
+    timing = legs is not None and (base in (*BLOCK_MODES, *PIXEL_MODES)
+                                   or rgba)
+    if rgba:
+        leg_names, timer, kind = RGBA_LEGS, timed_rgba_legs, (
+            "scaled" if content == "scaled" else "rgba")
+    elif base in PIXEL_MODES:
+        leg_names, timer, kind = PIXEL_LEGS, timed_pixel_legs, "yuv"
+    else:
+        leg_names, timer, kind = BLOCK_LEGS, timed_block_legs, "yuv"
 
     with tempfile.TemporaryDirectory() as tmp, \
             ThreadPoolExecutor(max_workers=5) as pool:
@@ -457,13 +646,17 @@ def main_path_stream(mode: str, n: int, legs: list = None,
         sink = Renderer.create(canvas, opts, 1, 1, 0.0, 0.0).render_cb("")
         last_h = -1
         for k in range(0, n, _WINDOW):
-            window = [(ys[i], us[i], vs[i]) for i in range(k, k + _WINDOW)]
+            if rgba:
+                window = [frames[i] for i in range(k, k + _WINDOW)]
+            else:
+                window = [(ys[i], us[i], vs[i])
+                          for i in range(k, k + _WINDOW)]
             leg = dict.fromkeys(leg_names, 0.0)
-            leg["planes"] = planes_s
+            leg[leg_names[0]] = planes_s
             with (timer(leg) if timing else contextlib.nullcontext()):
-                frames = src._process_window(window, "yuv")
+                out = src._process_window(window, kind)
                 t0 = time.perf_counter()
-                for j, frame in enumerate(frames):
+                for j, frame in enumerate(out):
                     seq = (SeqType.START_OF_ANIMATION if k + j == 0
                            else SeqType.ANIMATION_FRAME)
                     sink(src.indentation, -last_h if last_h > 0 else 0,
@@ -1739,6 +1932,203 @@ STILL_FRAMES = {"gif libsixel": 24, "gif pq": 24, "gif pk": 24,
 STILL_KERNELS = ("dither", "tree", "bucket", "table", "quarter_cells",
                  "half_cells", "run_counts")
 N_STILL_CHILDREN = 4        # CPU children sharing the cases
+# the decoders beside Pillow and QOI, each in -pq and -ps: decoder ->
+# its file (``decoder_inputs``); the last four run only where their
+# library (or gs) is on the host
+DECODER_FILES = {"hdr": "sky.hdr", "dpx": "scan.dpx", "xwd": "screen.xwd",
+                 "miff": "image.miff", "xcf": "layers.xcf",
+                 "text": "notes.txt", "svg": "drawing.svg",
+                 "pdf": "letter.pdf", "postscript": "letter.ps",
+                 "openslide": "slide.tif"}
+
+
+def decoder_libraries() -> dict:
+    """Which library-backed decoders can run on this host: librsvg and
+    cairo (SVG), poppler-glib (PDF), gs (PostScript), libopenslide."""
+    from timg_tpu_torch.sources import (openslide_source, pdf_source,
+                                        ps_source, svg_source)
+
+    return {"svg": svg_source._load() is not None,
+            "pdf": pdf_source.poppler_available(),
+            "postscript": ps_source.find_gs() is not None,
+            "openslide": openslide_source._lib() is not None}
+
+
+def decoder_cases(libraries: dict) -> dict:
+    """STILL_CASES entries of the decoders this host can run."""
+    cases = {}
+    for name, f in DECODER_FILES.items():
+        if not libraries.get(name, True):
+            continue
+        cases[f"{name} pq"] = (["-pq"], [f], {})
+        cases[f"{name} ps"] = (["-ps"], [f], {})
+    return cases
+
+
+def decoder_inputs(d: str) -> None:
+    """The decoders' files, written from the seed as their formats lay
+    them out (the JAX package's tests write the same layouts:
+    tests/test_hdr.py, tests/test_gm_formats.py, tests/test_xcf.py): a
+    1024x768 Radiance HDR of adaptive-RLE scanlines, a 1920x1080 10-bit
+    DPX (method A, big-endian), a 1280x800 32-bit XWD, a 1024x768 8-bit
+    DirectClass MIFF, a 1024x768 XCF of an RGB layer under an RGBA layer
+    with an alpha ramp (raw tiles), a text page, a 1600x1000 SVG with
+    translucent shapes, a one-page Letter PDF, the same page in
+    PostScript and a 2048x1536 tiled TIFF (OpenSlide's generic-tiff
+    slide)."""
+    import struct
+
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 17)
+
+    def picture(h, w, k):
+        yy, xx = np.mgrid[0:h, 0:w]
+        return np.stack([(xx * (100 + 30 * c) // w + yy * (60 + 20 * c) // h
+                          + 40 * c + 11 * k + rng.integers(0, 16, (h, w)))
+                         % 256 for c in range(3)], -1).astype(np.uint8)
+
+    def put(name, data):
+        with open(os.path.join(d, name), "wb") as f:
+            f.write(data)
+
+    # Radiance HDR: each scanline 2 2 w/256 w%256, then each component's
+    # literal chunks of up to 128 bytes (stb_image.h:7159-7287)
+    h, w = 768, 1024
+    rgbe = np.concatenate([picture(h, w, 0), rng.integers(
+        124, 134, (h, w, 1)).astype(np.uint8)], -1)
+    out = [b"#?RADIANCE\nFORMAT=32-bit_rle_rgbe\n\n-Y %d +X %d\n" % (h, w)]
+    for row in rgbe:
+        out.append(bytes([2, 2, w >> 8, w & 0xFF]))
+        for c in range(4):
+            for x in range(0, w, 128):
+                chunk = row[x:x + 128, c]
+                out.append(bytes([len(chunk)]) + chunk.tobytes())
+    put(DECODER_FILES["hdr"], b"".join(out))
+
+    # DPX: 2048-byte header, 10-bit RGB filled to 32 bits (method A)
+    h, w = 1080, 1920
+    rgb = picture(h, w, 1).astype(np.uint32) * 4 + 1
+    hdr = bytearray(2048)
+    hdr[0:4] = b"SDPX"
+    struct.pack_into(">I", hdr, 4, 2048)
+    hdr[8:16] = b"V2.0\0\0\0\0"
+    struct.pack_into(">HHII", hdr, 768, 0, 1, w, h)
+    hdr[800], hdr[803] = 50, 10               # RGB, 10 bits
+    struct.pack_into(">HHII", hdr, 804, 1, 0, 2048, 0)
+    words = (rgb[..., 0] << 22) | (rgb[..., 1] << 12) | (rgb[..., 2] << 2)
+    put(DECODER_FILES["dpx"], bytes(hdr) + words.astype(">u4").tobytes())
+
+    # XWD: ZPixmap, 24-bit depth in 32-bit pixels, MSB first
+    h, w = 800, 1280
+    rgb = picture(h, w, 2).astype(np.uint32)
+    name = b"chip-smoke\0"
+    head = struct.pack(">25I", 100 + len(name), 7, 2, 24, w, h, 0, 1, 32,
+                       1, 32, 32, w * 4, 4, 0xFF0000, 0x00FF00, 0x0000FF,
+                       8, 0, 0, w, h, 0, 0, 0)
+    pix = (rgb[..., 0] << 16) | (rgb[..., 1] << 8) | rgb[..., 2]
+    put(DECODER_FILES["xwd"], head + name + pix.astype(">u4").tobytes())
+
+    # MIFF: text header, then 8-bit DirectClass RGB samples
+    h, w = 768, 1024
+    head = (f"id=ImageMagick  version=1.0\nclass=DirectClass  colors=0  "
+            f"matte=False\ncolumns={w}  rows={h}  depth=8\n"
+            "compression=None\n\f\n:").encode()
+    put(DECODER_FILES["miff"], head + picture(h, w, 3).tobytes())
+
+    # XCF v2: an RGBA layer (offset, an alpha ramp) over an RGB layer,
+    # raw 64x64 tiles (PROP_COMPRESSION 0)
+    h, w = 768, 1024
+    top = np.concatenate([picture(400, 600, 4), np.broadcast_to(
+        np.linspace(255, 0, 600).astype(np.uint8)[None, :, None],
+        (400, 600, 1))], -1)
+    layers = [(top, 1, 150, 100), (picture(h, w, 5), 0, 0, 0)]
+    b = bytearray(b"gimp xcf v002\0" + struct.pack(">III", w, h, 0))
+    b += struct.pack(">II", 17, 1) + bytes([0]) + struct.pack(">II", 0, 0)
+    slots = []
+    for _ in range(len(layers) + 2):       # the layers, two terminators
+        slots.append(len(b))
+        b += bytes(4)
+    for slot, (pix, kind, ox, oy) in zip(slots, layers):
+        lh, lw, bpp = pix.shape
+        struct.pack_into(">I", b, slot, len(b))
+        b += struct.pack(">III", lw, lh, kind)
+        b += struct.pack(">I", 6) + b"layer\0"
+        b += struct.pack(">III", 6, 4, 255) + struct.pack(">III", 8, 4, 1)
+        b += struct.pack(">IIii", 15, 8, ox, oy) + struct.pack(">II", 0, 0)
+        hier = len(b)
+        b += bytes(8)                      # hierarchy, mask (none)
+        struct.pack_into(">I", b, hier, len(b))
+        b += struct.pack(">III", lw, lh, bpp)
+        level = len(b)
+        b += bytes(8)                      # level, terminator
+        struct.pack_into(">I", b, level, len(b))
+        b += struct.pack(">II", lw, lh)
+        tiles = [(ty, tx) for ty in range(0, lh, 64)
+                 for tx in range(0, lw, 64)]
+        first = len(b)
+        b += bytes(4 * (len(tiles) + 1))
+        for i, (ty, tx) in enumerate(tiles):
+            struct.pack_into(">I", b, first + 4 * i, len(b))
+            b += pix[ty:ty + 64, tx:tx + 64].tobytes()
+    put(DECODER_FILES["xcf"], bytes(b))
+
+    put(DECODER_FILES["text"], b"timg-tpu-torch\n\n" + b"".join(
+        b"line %d: the quick brown fox jumps over the lazy dog\n" % i
+        for i in range(40)))
+    put(DECODER_FILES["svg"], (
+        '<svg xmlns="http://www.w3.org/2000/svg" width="1600" '
+        'height="1000"><rect width="1600" height="1000" fill="#336699"/>'
+        '<circle cx="800" cy="500" r="380" fill="#ffcc00" '
+        'fill-opacity="0.6"/><rect x="100" y="600" width="900" '
+        'height="300" fill="#cc3366" fill-opacity="0.4"/></svg>').encode())
+
+    # a one-page US Letter PDF (612 x 792 pt) and the page in PostScript
+    page = (b"0.2 0.4 0.6 rg 0 0 612 792 re f 1 0.8 0 rg 100 200 400 300 "
+            b"re f")
+    objs = [b"<< /Type /Catalog /Pages 2 0 R >>",
+            b"<< /Type /Pages /Kids [3 0 R] /Count 1 >>",
+            b"<< /Type /Page /Parent 2 0 R /MediaBox [0 0 612 792] "
+            b"/Contents 4 0 R >>",
+            b"<< /Length %d >>\nstream\n%s\nendstream" % (len(page), page)]
+    pdf = bytearray(b"%PDF-1.4\n")
+    offsets = []
+    for i, obj in enumerate(objs, 1):
+        offsets.append(len(pdf))
+        pdf += b"%d 0 obj\n%s\nendobj\n" % (i, obj)
+    xref = len(pdf)
+    pdf += b"xref\n0 %d\n0000000000 65535 f \n" % (len(objs) + 1)
+    pdf += b"".join(b"%010d 00000 n \n" % off for off in offsets)
+    pdf += (b"trailer\n<< /Size %d /Root 1 0 R >>\nstartxref\n%d\n%%%%EOF\n"
+            % (len(objs) + 1, xref))
+    put(DECODER_FILES["pdf"], bytes(pdf))
+    put(DECODER_FILES["postscript"], (
+        b"%!PS-Adobe-3.0\n%%BoundingBox: 0 0 612 792\n%%Pages: 1\n"
+        b"0.2 0.4 0.6 setrgbcolor 0 0 612 792 rectfill\n"
+        b"1 0.8 0 setrgbcolor 100 200 400 300 rectfill\nshowpage\n"))
+
+    # a generic tiled TIFF, little-endian: 8-bit RGB in uncompressed
+    # 256x256 tiles, one level; the IFD, then BitsPerSample, the tile
+    # offsets and byte counts, then the tiles
+    h, w, t = 1536, 2048, 256
+    rgb = picture(h, w, 6)
+    tiles = [rgb[y:y + t, x:x + t].tobytes() for y in range(0, h, t)
+             for x in range(0, w, t)]
+    n = len(tiles)
+    bps = 8 + 2 + 12 * 11 + 4
+    offsets = bps + 6
+    data = offsets + 8 * n
+    tags = [(256, 4, 1, w), (257, 4, 1, h), (258, 3, 3, bps),
+            (259, 3, 1, 1), (262, 3, 1, 2), (277, 3, 1, 3), (284, 3, 1, 1),
+            (322, 3, 1, t), (323, 3, 1, t), (324, 4, n, offsets),
+            (325, 4, n, offsets + 4 * n)]
+    tif = struct.pack("<2sHIH", b"II", 42, 8, len(tags))
+    tif += b"".join(struct.pack("<HHII", *tag) for tag in tags)
+    tif += struct.pack("<I3H", 0, 8, 8, 8)
+    tif += struct.pack(f"<{n}I", *(data + k * len(tiles[0])
+                                   for k in range(n)))
+    tif += struct.pack(f"<{n}I", *(len(tile) for tile in tiles))
+    put(DECODER_FILES["openslide"], tif + b"".join(tiles))
 
 
 def still_inputs(d: str) -> None:
@@ -2088,7 +2478,13 @@ def stills_phase(dev, reset_counts, read_counts, launches: dict) -> None:
     d = tempfile.mkdtemp(prefix="timg_stills_")
     t_phase = time.perf_counter()
     still_inputs(d)
-    print(f"stills: inputs made in {time.perf_counter() - t_phase:.2f} s")
+    decoder_inputs(d)
+    libraries = decoder_libraries()
+    STILL_CASES.update(decoder_cases(libraries))
+    print(f"stills: inputs made in {time.perf_counter() - t_phase:.2f} s; "
+          "decoder libraries on this host: " + ", ".join(
+              f"{k} {'found' if v else 'absent'}"
+              for k, v in libraries.items()))
     env = dict(os.environ, TIMG_TPU_TORCH_DEVICE="cpu",
                CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="2")
     names = list(STILL_CASES)
@@ -2169,6 +2565,60 @@ def stills_phase(dev, reset_counts, read_counts, launches: dict) -> None:
         shutil.rmtree(d, ignore_errors=True)
 
 
+def rgba_phase(reset_counts, read_counts, launches: dict,
+               streams: dict) -> int:
+    """The RGBA and scaled video windows on the card (RGBA_RUNS): each
+    run's stream into ``streams`` (its CPU child's comes later), its
+    launches added to ``launches``.  The opaque codec's windows must
+    launch K1 and never ask for the background, the others neither K1
+    nor the convert.  Returns the block frames the C emitter wrote."""
+    import torch
+
+    block_frames = 0
+    for name, (mode, n, content) in RGBA_RUNS.items():
+        reset_counts()
+        BG_QUERIES[0] = 0
+        t0 = time.perf_counter()
+        stream = main_path_stream(mode, n, content=content)
+        torch.cuda.synchronize()
+        t_run = time.perf_counter() - t0
+        counts = read_counts()
+        queries = BG_QUERIES[0]
+        print(f"main path: {name}: {n} frames in {t_run:.2f} s (host clock, "
+              f"frames' making and emit included, the CPU children "
+              f"running), {len(stream)} bytes, background queries "
+              f"{queries}, launches {counts}")
+        want = RGBA_KERNELS[mode] + (TRANSPORT_KERNELS["auto"]
+                                     if mode in SIXEL_MODES else ())
+        if content == "rgba":
+            want += ("resize",)
+            if queries:
+                fail(f"main path {name}: an opaque window asked for the "
+                     f"background {queries} times")
+        elif counts["resize"]:
+            fail(f"main path {name} launched the lean resize (K1)")
+        if content == "rgba alpha" and not queries:
+            fail(f"main path {name} never asked for the background")
+        if counts["convert"] or counts["sws"]:
+            fail(f"main path {name} launched the convert or the sws kernel")
+        for k in want:
+            if counts[k] <= 0:
+                fail(f"main path {name} launched no {k} kernel")
+        for k in counts:
+            launches[k] += counts[k]
+        if mode in BLOCK_MODES:
+            block_frames += n
+            if b"\033[0m\n" not in stream:
+                fail(f"main path {name} wrote no row of cells")
+        else:
+            head = PIXEL_HEADS.get(mode, b"\033Pq")
+            if stream.count(head) != n:
+                fail(f"main path {name} wrote {stream.count(head)} images, "
+                     f"expected {n}")
+        streams[name] = stream
+    return block_frames
+
+
 def build_native():
     """The port's native helper: the C sixel assembler must build; the
     libav video decoder may not (no libav on the host)."""
@@ -2195,6 +2645,7 @@ def main() -> int:
     if len(sys.argv) == 4 and sys.argv[1] == "--still-streams":
         # child of the stills phase: its share of the cases on the CPU
         sys.path.insert(0, REPO)
+        STILL_CASES.update(decoder_cases(decoder_libraries()))
         still_streams_cpu(sys.argv[2], json.loads(sys.argv[3]))
         return 0
     if len(sys.argv) == 2 and sys.argv[1] == "--library-payloads":
@@ -2291,6 +2742,7 @@ def main() -> int:
     runs = {mode: (mode, n, "seeded") for mode, n in N_MAIN.items()}
     runs.update({f"{mode} flat": (mode, N_FLAT, "flat")
                  for mode in SIXEL_MODES})
+    runs.update(RGBA_RUNS)
     children = {key: subprocess.Popen(
         [sys.executable, me, "--main-path-stream", mode, str(n), content],
         env=env, cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE)
@@ -2385,6 +2837,8 @@ def main() -> int:
                 streams[f"{mode} flat"] = flat["plane"]
         finally:
             os.environ.pop("TIMG_TPU_SIXEL_TRANSPORT", None)
+        block_frames += rgba_phase(reset_counts, read_counts, launches,
+                                   streams)
         payloads = {}
         for run in LIB_RUNS:
             reset_counts()
@@ -2462,14 +2916,21 @@ def main() -> int:
                      + first_difference(streams[mode], out)
                      + f"; a second cuda run {which}")
             print(f"main path: {mode}: cuda stream == cpu stream")
-        # the pixel modes again, split into their legs, now that no CPU
-        # child competes for the host's cores with the pool's deflate
+        # the pixel modes and the RGBA windows again, split into their
+        # legs, now that no CPU child competes for the host's cores with
+        # the pool's deflate, the stack and the copies
         for mode in PIXEL_MODES:
             legs = []
             if main_path_stream(mode, N_MAIN[mode], legs) != streams[mode]:
                 fail(f"main path {mode}: a second run on the card wrote "
                      "another stream")
             print_legs(mode, legs)
+        for key, (mode, n, content) in RGBA_RUNS.items():
+            legs = []
+            if main_path_stream(mode, n, legs, content) != streams[key]:
+                fail(f"main path {key}: a second run on the card wrote "
+                     "another stream")
+            print_legs(key, legs)
     finally:
         for child in children.values():
             if child.poll() is None:
@@ -2518,7 +2979,7 @@ def main() -> int:
     print(json.dumps({"kernels": kernels}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name,
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
 

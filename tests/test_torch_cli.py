@@ -3,9 +3,11 @@
 The same y4m clip goes through both CLIs under a scripted pty; the sixel
 streams must be byte-identical, in every --dither mode, and so must the
 quarter- and half-block streams.  The port never
-imports jax, which a subprocess run shows, and it refuses what it does
-not run yet (stills: tests/test_torch_stills_cli.py; kitty, iTerm2 and
---resample=sws-bitexact: tests/test_torch_pixel_cli.py).
+imports jax, which a subprocess run shows, and what it once refused now
+runs (stills: tests/test_torch_stills_cli.py; kitty, iTerm2 and
+--resample=sws-bitexact: tests/test_torch_pixel_cli.py; the RGBA and
+scaled video windows with --resample=sws: tests/test_torch_video_rgba.py;
+the other decoders: tests/test_torch_decoders.py).
 """
 
 import os
@@ -170,37 +172,44 @@ def test_cli_without_cuda_names_the_variable(monkeypatch, tmp_path, capsys):
     (["-ps", "--dither=cube", "--resample=sws"], "--resample=sws"),
 ])
 def test_cli_refuses_what_is_not_ported(tmp_path, capsys, flags, what):
-    """--resample=sws (the host swscale leg) is refused with a message
-    that names it; -pk and -pi, refused until kitty and iTerm2 were
-    ported, now run and write their image (one frame: without a terminal
-    the cell size is unknown; their streams against the JAX CLI:
-    tests/test_torch_pixel_cli.py)."""
-    from timg_tpu_torch.cli import main
-    runs = "--resample=sws" not in flags
-    if runs:
-        _need_native()
+    """What the port once refused now runs: -pk and -pi write their image
+    (one frame: without a terminal the cell size is unknown; their
+    streams against the JAX CLI: tests/test_torch_pixel_cli.py), and
+    --resample=sws (the host swscale leg and its "scaled" window,
+    refused until the RGBA and scaled windows were ported) writes the
+    JAX CLI's stream (more: tests/test_torch_video_rgba.py)."""
+    from timg_tpu.cli import main as jax_main
+    from timg_tpu_torch.cli import main as torch_main
+    _need_native()
+    argv = ["--debug-no-frame-delay", "-g40x20", *flags, "--loops=1",
+            _y4m(tmp_path)]
     out = tmp_path / "x.out"
-    rc = main(["--debug-no-frame-delay", "-g40x20", *flags, "--loops=1",
-               _y4m(tmp_path), "-o", str(out)])
+    rc = torch_main(argv + ["-o", str(out)])
     err = capsys.readouterr().err
-    if runs:
-        assert rc == 0 and what not in err and "not yet ported" not in err
-        head = b"\033_Ga=T" if "-pk" in flags else b"\033]1337;File="
-        assert out.read_bytes().count(head) == 1
+    assert rc == 0 and what not in err and "not yet ported" not in err
+    if "--resample=sws" in flags:
+        assert jax_main(argv + ["-o", str(tmp_path / "j.out")]) == 0
+        assert out.read_bytes() == (tmp_path / "j.out").read_bytes()
+        assert out.read_bytes().count(b"\033Pq") == 1
         return
-    assert rc != 0
-    assert what in err and "not yet ported" in err and "scaled" in err
-    assert not out.exists() or out.read_bytes() == b""
+    head = b"\033_Ga=T" if "-pk" in flags else b"\033]1337;File="
+    assert out.read_bytes().count(head) == 1
 
 
 def test_cli_refuses_an_image(native, tmp_path, capsys):
-    """Stills are ported (tests/test_torch_stills_cli.py); an image that
-    only an unported decoder of the JAX package opens (here a PDF) is
-    refused with that decoder's name."""
-    from timg_tpu_torch.cli import main
+    """An image only a decoder the port once lacked opens (here a PDF),
+    refused by name until the decoders were ported, now takes the JAX
+    CLI's way: without poppler-glib both exit 1 with its gated
+    diagnostic (PDF streams: tests/test_torch_decoders.py)."""
+    from timg_tpu.cli import main as jax_main
+    from timg_tpu_torch.cli import main as torch_main
     pdf = tmp_path / "s.pdf"
     pdf.write_bytes(b"%PDF-1.4\n%%EOF\n")
-    rc = main(ARGV + [str(pdf), "-o", str(tmp_path / "x.out")])
-    assert rc != 0
+    rc = torch_main(ARGV + [str(pdf), "-o", str(tmp_path / "x.out")])
     err = capsys.readouterr().err
-    assert "not yet ported" in err and "PDF" in err
+    assert jax_main(ARGV + [str(pdf), "-o", str(tmp_path / "j.out")]) == rc
+    assert capsys.readouterr().err == err
+    assert "not yet ported" not in err
+    from timg_tpu_torch.sources.pdf_source import poppler_available
+    if not poppler_available():
+        assert rc != 0 and "poppler-glib" in err

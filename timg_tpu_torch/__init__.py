@@ -10,15 +10,18 @@ terminal queries, the canvas/sequencer/renderer, the numpy mirrors, the
 libsixel palette, the native C helper) are its own copies, with only
 their imports rewritten.  tests/test_torch_isolation.py holds it to that.
 
-Slices ported so far: stills and animations (QOI and what Pillow
-decodes, with the grid contact sheet, auto-crop, ``-a`` and scroll) and
-the sustained loop on 4:2:0 video, in ``-p sixel`` with every
+Slices ported so far: stills and animations from every decoder of the
+JAX package (QOI, what Pillow decodes, Radiance HDR, SVG, PDF,
+PostScript, OpenSlide, DPX, Cineon, XWD, MIFF, RLA, XCF and text), with
+the grid contact sheet, auto-crop, ``-a`` and scroll; and video of
+every pixel format (4:2:0 as planes, the rest and transparent-capable
+files as RGBA frames, APNG and GIF included), with ``--resample=sws``
+and ``--resample=sws-bitexact`` too; in ``-p sixel`` with every
 ``--dither`` mode (cube, libsixel, adaptive, auto), in ``-p quarter``
-/ ``-p half`` and in ``-p kitty`` / ``-p iterm2``, video also with
-``--resample=sws-bitexact``; the library API's sixel, block, kitty and
-iterm2 models (``models.get(...)``).  Decode and the PNG encode run on
-the host, everything between them on the device, small stills
-included.
+/ ``-p half`` and in ``-p kitty`` / ``-p iterm2``; the library API's
+sixel, block, kitty and iterm2 models (``models.get(...)``).  Decode
+and the PNG encode run on the host, everything between them on the
+device, small stills included.
 
 Layer map (entry point down to the device):
 
@@ -27,15 +30,22 @@ Layer map (entry point down to the device):
   models/                -- library API: SixelModel (render_batch,
                             render_batch_yuv), the block models, the
                             kitty and iTerm2 models
-  sources/base.py        -- source factory: QOI, Pillow, video; names the
-                            JAX package's decoders not yet ported
+  sources/base.py        -- source factory, in the JAX package's order:
+                            OpenSlide, QOI, HDR, SVG, PDF, PostScript,
+                            GM formats, Pillow, video, text
+  sources/{hdr_source,svg_source,pdf_source,ps_source,openslide_source,
+          gm_formats,xcf,text_source}.py -- the other decoders (host),
+                            then pil_source's path
   sources/pil_source.py  -- Pillow decode (JPEG draft, EXIF, ICO, GIF
                             salvage) -> resize + compose on the device
                             -> the RGBA windows' planes
   sources/qoi_source.py  -- QOI decode (numpy), then pil_source's path
   sources/batch.py       -- grid contact sheet: one resize a geometry
   sources/scroll.py      -- scroll windows as rolls on the device
-  sources/video_source.py-- libav decode -> 8-frame YUV windows
+  sources/video_source.py-- libav decode -> 8-frame windows: YUV planes,
+                            RGBA frames (K1 resize, or the stb resize
+                            and the lazy compose), or host-swscaled
+                            frames (--resample=sws)
   render/plane_cache.py  -- per-window device flow: convert -> resize
                             (or the sws kernel) -> dither (cube |
                             libsixel | adaptive) -> fetch, the block

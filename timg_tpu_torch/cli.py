@@ -3,17 +3,19 @@
 Same flag surface, option resolution, pacing and exit codes as the JAX
 package's CLI; the sources and the canvas are the port's, and the
 jax-only parts (compile cache, forced-host pinning, JAX profiler hook,
-wedged-device exit) are gone.  The ported slices show stills and
-animations (QOI and everything Pillow decodes: PNG, JPEG, GIF, BMP,
-WebP, TIFF, ICO; with ``--grid``, ``--auto-crop``, ``-a``, ``--scroll``,
-``-U``/``-W``, ``--title`` and ``--frames``) and opaque 4:2:0 video
-(with ``--resample=sws-bitexact`` too), in ``-p sixel`` with every
+wedged-device exit) are gone.  It opens every input the JAX CLI opens:
+stills and animations from each of its decoders (QOI, everything Pillow
+decodes, Radiance HDR, SVG, PDF, PostScript, OpenSlide, the
+GraphicsMagick formats, text; with ``--grid``, ``--auto-crop``, ``-a``,
+``--scroll``, ``-U``/``-W``, ``--title`` and ``--frames``) and video of
+every pixel format (with ``--resample=sws`` and
+``--resample=sws-bitexact`` too), in ``-p sixel`` with every
 ``--dither`` mode (cube, libsixel, adaptive, and auto, which resolves
 to one of the latter two as the JAX CLI resolves it), in ``-p quarter``
 / ``-p half`` and in ``-p kitty`` / ``-p iterm2``.  Decode and the PNG
 encode run on the host and everything between them on the device, small
-stills included.  ``--resample=sws``, ``--serve``, ``--devices`` and
-the unported decoders exit with a "not yet ported" message.
+stills included.  ``--serve`` and ``--devices`` exit with a "not yet
+ported" message.
 The device is ``cuda`` unless TIMG_TPU_TORCH_DEVICE=cpu.
 """
 
@@ -163,9 +165,6 @@ def main(argv: Optional[List[str]] = None) -> int:
         return EXIT_SUCCESS
     if args.devices:
         return _not_ported("--devices")
-    if args.resample == "sws":
-        return _not_ported("--resample=sws (the host swscale leg and its "
-                           "'scaled' video window)")
 
     from timg_tpu_torch.ops import backend
     try:

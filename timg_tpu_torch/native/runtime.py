@@ -152,6 +152,15 @@ def _bind_video(lib: ctypes.CDLL) -> ctypes.CDLL:
         ctypes.c_void_p, ctypes.c_char_p, ctypes.c_char_p,
         ctypes.c_char_p, ctypes.c_char_p]
     lib.timg_video_close.argtypes = [ctypes.c_void_p]
+    # --resample=sws: decode + swscale SWS_BILINEAR to display size in
+    # one host call a frame (ref video-source.cc:59-89, :352-354)
+    lib.timg_video_read_frame_scaled.restype = ctypes.c_int
+    lib.timg_video_read_frame_scaled.argtypes = [
+        ctypes.c_void_p, ctypes.c_char_p, ctypes.c_int, ctypes.c_int]
+    lib.timg_sws_scale_rgba.restype = ctypes.c_int
+    lib.timg_sws_scale_rgba.argtypes = [
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     return lib
 
 

@@ -5,11 +5,11 @@ Behavioral spec: ref src/image-source.{h,cc}. A source loads & scales at
 construction time (in the decode pool), then streams frames to a renderer
 sink via ``send_frames`` honoring duration/loop limits.
 
-The factory tries the port's decoders in the JAX package's order,
-restricted to what is ported: QOI, Pillow (PNG, JPEG, GIF, BMP, WebP,
-TIFF, ICO, ...), then video.  A file that only an unported decoder of
-the JAX package opens (OpenSlide, Radiance HDR, SVG, PDF, PostScript,
-the GraphicsMagick long tail, text) gets a message naming that decoder.
+The factory tries the port's decoders in the JAX package's order:
+OpenSlide, QOI, Radiance HDR, SVG, PDF, PostScript, the GraphicsMagick
+formats (DPX, Cineon, XWD, MIFF, RLA, XCF), Pillow (PNG, JPEG, GIF, BMP,
+WebP, TIFF, ICO, ...), video, and text last.  Every decoder decodes on
+the host and hands its frames to the still path on the device.
 """
 
 from __future__ import annotations
@@ -159,45 +159,6 @@ def looks_like_apng(filename: str) -> bool:
     return False
 
 
-# Decoders of the JAX package that the port lacks, by the suffix that
-# gates each (timg_tpu/sources/*.py); the JAX factory tries all but the
-# text decoder before Pillow.
-_UNPORTED_BEFORE_PIL = (
-    ("OpenSlide", (".svs", ".ndpi", ".mrxs", ".scn", ".vms", ".vmu", ".bif",
-                   ".svslide")),
-    ("SVG", (".svg", ".svgz")),
-    ("PDF", (".pdf",)),
-    ("PostScript", (".ps", ".eps")),
-    ("GraphicsMagick-format", (".dpx", ".cin", ".xwd", ".miff", ".xcf",
-                               ".rla")),
-)
-_HDR_SIGNATURES = (b"#?RADIANCE\n", b"#?RGBE\n")
-_TEXT_SUFFIXES = (".txt", ".text", ".log")
-
-
-def _unported_decoder(filename: str) -> str:
-    """The name of the JAX package's decoder that would take this file
-    before Pillow does, where the port lacks it; "" otherwise."""
-    if filename == "-":
-        return ""
-    lower = filename.lower()
-    for name, suffixes in _UNPORTED_BEFORE_PIL:
-        if lower.endswith(suffixes):
-            return name
-    try:
-        with open(filename, "rb") as f:
-            if f.read(16).startswith(_HDR_SIGNATURES):
-                return "Radiance HDR"
-    except OSError:
-        pass
-    return ""
-
-
-def _not_ported(filename: str, decoder: str) -> str:
-    return (f"{filename}: the {decoder} decoder is not yet ported to "
-            "timg_tpu_torch")
-
-
 def create_source(
     filename: str,
     options: DisplayOptions,
@@ -208,18 +169,32 @@ def create_source(
 ) -> tuple[Optional[ImageSource], str]:
     """Factory: try sources in priority order, first success wins
     (ref image-source.cc:155-263). Returns (source, error_message)."""
+    from timg_tpu_torch.sources.gm_formats import GMFormatsSource
+    from timg_tpu_torch.sources.hdr_source import HDRSource
+    from timg_tpu_torch.sources.openslide_source import OpenSlideSource
+    from timg_tpu_torch.sources.pdf_source import PDFSource
     from timg_tpu_torch.sources.pil_source import PILSource
+    from timg_tpu_torch.sources.ps_source import PSSource
     from timg_tpu_torch.sources.qoi_source import QOISource
+    from timg_tpu_torch.sources.svg_source import SVGSource
+    from timg_tpu_torch.sources.text_source import TextSource
     from timg_tpu_torch.sources.video_source import VideoSource
 
     candidates: list = []
     if attempt_image_loading:
-        decoder = _unported_decoder(filename)
-        if decoder and os.path.isfile(filename):
-            return None, _not_ported(filename, decoder)
-        candidates += [QOISource, PILSource]
+        # OpenSlide first, like the reference factory priority (ref
+        # image-source.cc:161-221); HDR (signature-gated) fills part of
+        # the reference's stb-fallback role; PostScript before Pillow,
+        # whose EpsImagePlugin also needs gs but fails without the gated
+        # diagnostic hint; the suffix-gated GM formats before Pillow too
+        candidates += [OpenSlideSource, QOISource, HDRSource, SVGSource,
+                       PDFSource, PSSource, GMFormatsSource, PILSource]
     if attempt_video_loading:
         candidates.append(VideoSource)
+    if attempt_image_loading:
+        # last resort, suffix-gated: .txt rendering (role of the
+        # full-GM reference's TXT coder; see sources/text_source.py)
+        candidates.append(TextSource)
 
     count = -1 if frame_count == NOT_INITIALIZED else frame_count
     hint = ""
@@ -228,8 +203,6 @@ def create_source(
             src = cls(filename)
             if src.load_and_scale(options, frame_offset, count):
                 return src, ""
-        except NotImplementedError as e:    # a path the port lacks
-            return None, f"{filename}: {e}"
         except RuntimeError as e:  # gated-feature diagnosis
             hint = str(e)
         except Exception:
@@ -257,9 +230,6 @@ def create_source(
                      "video helper is not built "
                      "(timg_tpu_torch/native/timg_video.cc needs the libav "
                      "headers and libraries)")
-    if not error and attempt_image_loading \
-            and filename.lower().endswith(_TEXT_SUFFIXES):
-        error = _not_ported(filename, "text")
     if not error and not hint:
         # Formats only GraphicsMagick's exotic coders decode (ref
         # graphics-magick-source.cc:156-282 gets these for free; no PIL

@@ -9,19 +9,36 @@ timestamps at k/fps (:356-360), rewind-and-loop via seek (:302-307),
 "videos loop once" default handled by the CLI, frame_offset skip
 (:342-347).
 
-When the decoded stream is 8-bit 4:2:0 the raw Y/U/V planes ship to the
-device at 1.5 bytes/pixel and the port's device flow converts and
-resizes them there, then dithers them (sixel sessions,
-render/plane_cache.prime_sixel_video_device), picks the block cells
-(half and quarter sessions, prime_block_video_device) or hands the
-words to the kitty or iTerm2 canvas, which fetches each frame in its
-encode pool (prime_pixel_video_device).  Odd-width quarter frames come
-back to the host after the resize, and the canvas renders them one by
-one.  ``--resample=sws-bitexact`` makes the words with the
-swscale-exact kernel instead of the convert and the resize, in every
-window.  Streams that would take another path in the reference (RGBA
-decode, transparent-capable suffixes, the host swscale of
-``--resample=sws``) are not yet ported.
+A window holds frames of one kind:
+- ``"yuv"``: when the decoded stream is 8-bit 4:2:0 the raw Y/U/V planes
+  ship to the device at 1.5 bytes/pixel and the port's device flow
+  converts and resizes them there, then dithers them (sixel sessions,
+  render/plane_cache.prime_sixel_video_device), picks the block cells
+  (half and quarter sessions, prime_block_video_device) or hands the
+  words to the kitty or iTerm2 canvas, which fetches each frame in its
+  encode pool (prime_pixel_video_device).  Odd-width quarter frames
+  come back to the host after the resize, and the canvas renders them
+  one by one.  ``--resample=sws-bitexact`` makes the words with the
+  swscale-exact kernel instead of the convert and the resize.
+- ``"rgba"``: other pixel formats, ``TIMG_TPU_VIDEO_RGBA=1``, a
+  mid-stream frame the helper converted to RGBA, and files whose suffix
+  may carry transparency (APNG, GIF; always RGBA).  The helper's
+  swscale makes RGBA frames on the host; on the device the
+  transparent-capable ones take the stb resize and opaque ones the lean
+  resize of RGBA words (the K1 kernel), then a one-scalar probe decides
+  whether any pixel is transparent, and only then is the background
+  asked for (the reference's lazy query, ref framebuffer.cc:113-121)
+  and composed.  ``--resample=sws-bitexact`` on such streams takes the
+  host swscale below, as the JAX package does.
+- ``"scaled"`` (``--resample=sws``, the reference's own video leg, ref
+  video-source.cc:59-89, :352-354): the helper decodes and swscales each
+  frame to the display size on the host; the device only probes,
+  composes and primes.
+The RGBA windows' frames then go, still on the device, to the RGBA
+window primers (prime_block_planes, prime_sixel_planes) and come back
+to the host once for the canvases.  The JAX package's host order for
+these windows (``TIMG_TPU_VIDEO_DEVICE_WINDOW=0``) writes the same
+bytes, so they ignore that setting.
 """
 
 from __future__ import annotations
@@ -32,12 +49,17 @@ import sys
 from typing import Callable, List
 
 import numpy as np
+import torch
 
 from timg_tpu_torch.geometry import calc_scale_to_fit
+from timg_tpu_torch.ops import backend
+from timg_tpu_torch.ops.compose import alpha_compose_background
+from timg_tpu_torch.ops.resize import resize_batch, resize_video_words
 from timg_tpu_torch.options import NOT_INITIALIZED, DisplayOptions
-from timg_tpu_torch.render.plane_cache import (not_ported,
+from timg_tpu_torch.render.plane_cache import (prime_block_planes,
                                                prime_block_video_device,
                                                prime_pixel_video_device,
+                                               prime_sixel_planes,
                                                prime_sixel_video_device,
                                                stage_window)
 from timg_tpu_torch.render.sequencer import SeqType
@@ -62,15 +84,15 @@ class VideoSource(ImageSource):
         # block window's tail
         self._sixel_state: dict = {}
         self._sws_device = False
+        self._use_yuv = False
+        self._use_sws = False
+        self._full_range = False
+        self._transparent_suffix = False
 
     def load_and_scale(self, options: DisplayOptions, frame_offset: int,
                        frame_count: int) -> bool:
         from timg_tpu_torch.native import runtime
 
-        resample = getattr(options, "resample", "auto")
-        if resample == "sws":
-            raise not_ported("--resample=sws (the host swscale leg and "
-                             "its 'scaled' video window)")
         lib = runtime.load_video()
         if lib is None:
             return False
@@ -103,28 +125,34 @@ class VideoSource(ImageSource):
 
         # Raw-plane transport: 4:2:0 streams ship YUV planes to the
         # device (1.5 B/px).  Transparent-capable suffixes keep the
-        # reference's RGBA path, which is not yet ported.
+        # reference's RGBA path (4:2:0 carries no alpha, but their RGBA
+        # compose path is the tested one).
         self._full_range = False
         self._use_yuv = False
-        self._use_sws = False
-        if not self._maybe_transparent() \
+        self._sws_device = False
+        # --resample=sws: the reference's exact video leg -- decode +
+        # swscale SWS_BILINEAR straight to display size in one host
+        # call per frame (ref video-source.cc:59-89 + :352-354); no
+        # device resize, no YUV transport.
+        resample = getattr(options, "resample", "auto")
+        self._use_sws = resample == "sws"
+        if not self._use_sws and not self._maybe_transparent() \
                 and not os.environ.get("TIMG_TPU_VIDEO_RGBA"):
             info = lib.timg_video_pix_info(handle)
             self._use_yuv = bool(info & 1)
             self._full_range = bool(info & 2)
-        if not self._use_yuv:
-            raise not_ported("video that is not opaque 8-bit 4:2:0 "
-                             "(RGBA window path)")
 
         tw, th, _ = calc_scale_to_fit(self.orig_width, self.orig_height,
                                       options)
         self._target = (tw, th)
-        # --resample=sws-bitexact: the swscale-exact kernel in the same
-        # window as the lean path (ops/sws_resize.py), so the exact mode
-        # pays no extra host traffic; every geometry of a 4:2:0 stream
-        # is modeled (the JAX package's host fallback serves the streams
-        # refused above)
-        self._sws_device = resample == "sws-bitexact"
+        if resample == "sws-bitexact":
+            # the swscale-exact kernel in the same window as the lean
+            # path (ops/sws_resize.py), every geometry of a 4:2:0
+            # stream; the other streams take the host sws leg
+            if self._use_yuv:
+                self._sws_device = True
+            else:
+                self._use_sws = True
         self.indentation = (
             int((options.width - tw) / 2)
             if options.center_horizontally else 0
@@ -135,7 +163,7 @@ class VideoSource(ImageSource):
         return True
 
     def _maybe_transparent(self) -> bool:
-        return getattr(self, "_transparent_suffix", False)
+        return self._transparent_suffix
 
     def default_loops(self) -> int:
         """Videos loop once, APNG forever (ref video-source.cc:277-285)."""
@@ -148,11 +176,58 @@ class VideoSource(ImageSource):
 
     def _process_window(self, raw: List, kind: str = "rgba"
                         ) -> List[np.ndarray]:
-        """One device window: raw = list of (y, u, v) plane triples.
-        The reference's other kinds ("rgba", "scaled") are not yet
-        ported."""
-        if kind != "yuv":
-            raise not_ported(f"the {kind!r} video window")
+        """One device window of ``kind`` (module docstring): "yuv": raw =
+        list of (y, u, v) plane triples; "rgba": [H, W, 4] uint8 frames
+        at the stream's size; "scaled": [th, tw, 4] uint8 frames at the
+        display size."""
+        if kind == "yuv":
+            return self._yuv_window(raw)
+        x = torch.from_numpy(np.stack(raw)).to(backend.device())
+        if kind == "rgba":
+            x = self._resize(x)
+        # "scaled": the host swscale made display-size frames already
+        x = self._composed(x)
+        return self._prime_and_list(list(x.cpu().numpy()), x)
+
+    def _resize(self, x: torch.Tensor) -> torch.Tensor:
+        """[B, H, W, 4] uint8 frames on the device -> the display size."""
+        tw, th = self._target
+        if self._maybe_transparent():
+            return resize_batch(x, th, tw)          # stb-exact
+        # opaque codecs: the lean resize (the reference's video path
+        # swscales here, ref video-source.cc:352, so the stb-exact
+        # pipeline isn't the parity target) of RGBA words, a free view of
+        # the contiguous frames (R in the low byte)
+        words = resize_video_words(x.view(torch.int32)[..., 0], th, tw)
+        return words.unsqueeze(-1).view(torch.uint8)
+
+    def _composed(self, x: torch.Tensor) -> torch.Tensor:
+        """Lazy background query (ref framebuffer.cc:113-121): one scalar
+        says whether any pixel of the window is transparent; only then
+        is the background asked for (it may query the terminal) and
+        composed on the resident frames."""
+        opts = self._options
+        if opts.bgcolor_getter is None \
+                or not bool((x[..., 3] != 255).any()):
+            return x
+        return alpha_compose_background(
+            x, opts.bgcolor_getter(), opts.bg_pattern_color,
+            pattern_w=opts.pattern_size * opts.cell_x_px,
+            pattern_h=opts.pattern_size * opts.cell_y_px // 2)
+
+    def _prime_and_list(self, frames: List[np.ndarray],
+                        batch: torch.Tensor) -> List[np.ndarray]:
+        """The RGBA window primers on ``frames``, stacked on the device
+        as ``batch``."""
+        opts = self._options
+        prime_block_planes(frames, opts, batch=batch)
+        # sustained: libsixel windows take the table dither even for a
+        # one-frame window, as the JAX package's video windows do
+        prime_sixel_planes(frames, opts, self._sixel_state, sustained=True,
+                           batch=batch)
+        return frames
+
+    def _yuv_window(self, raw: List) -> List[np.ndarray]:
         tw, th = self._target
         opts = self._options
         state = self._sixel_state
@@ -189,8 +264,8 @@ class VideoSource(ImageSource):
         w, h = self.orig_width, self.orig_height
         nbytes = w * h * 4
         buf = ctypes.create_string_buffer(nbytes)
-        use_yuv = getattr(self, "_use_yuv", False)
-        use_sws = getattr(self, "_use_sws", False)
+        use_yuv = self._use_yuv
+        use_sws = self._use_sws
         ybuf = ubuf = vbuf = sbuf = None
         cw = ch = 0
         tw, th = self._target
