@@ -126,8 +126,28 @@ only the port (timg_tpu_torch), never jax or the JAX package.  Phases:
    compose, trim bounds, nearest, scroll) by CUDA events beside their
    byte bound.
 
-Before each run of phases 3 to 5 every launch counter is set to 0, and
-just after it every kernel of that run must have launched.  The C
+6. serve: `timg-tpu-torch --serve` on the card on a socket in the
+   stills' temp dir, reached by the launcher on a pty: the photo in
+   -pq, libsixel and -pk and the HDR in -pq, each equal to the stills
+   phase's CPU child (kitty ids renamed to the pinned ones); the cold
+   launcher, the first served request and the median of 5 warm ones,
+   beside the launcher's own start; a TIMG_TPU_TORCH_DEVICE=cpu
+   request answered D on the socket and run by the launcher on the CPU
+   with the same bytes; SIGTERM, after which the socket is gone; then
+   the serve loop in this process, the caching allocator read after
+   each of 6 requests, which must not grow after the second;
+7. devices: with two cards or more, --devices N over them; with one,
+   the routing's device list cuda:0 four times: an 8-frame window in
+   cube, libsixel, adaptive, quarter, kitty and cube sws through the
+   sharded window against one card (each kernel of the mode launched,
+   each shard's card printed, both times), the photo in -pq and -pk and
+   a 2560x2048 PNG (the spatial route) through the CLI with --devices
+   against the one-card streams, and parallel/mesh.py's two pipelines
+   against the unsharded ops.  `chip_smoke.py --devices-only` runs this
+   phase alone (on a host of four cards).
+
+Before each run of phases 3 to 5 and 7 every launch counter is set to
+0, and just after it every kernel of that run must have launched.  The C
 assembler must have assembled every sixel frame and the C ANSI emitter
 written every block frame (the Python twins none).  The CLI itself is
 not driven where the video decoder does not build.
@@ -2467,12 +2487,14 @@ def still_run(name: str, d: str, streams: dict) -> int:
     return n
 
 
-def stills_phase(dev, reset_counts, read_counts, launches: dict) -> None:
+def stills_phase(dev, reset_counts, read_counts, launches: dict,
+                 after=None) -> None:
     """The port's CLI on stills, on the card: every STILL_CASES run's
     stream must equal the same run on the CPU in a child; each kernel of
     STILL_KERNELS must have launched, the C assembler assembled every
     sixel frame it was given and the C emitter written every block
-    frame."""
+    frame.  Then ``after(d, streams)``, if given, with the phase's files
+    and its card streams, before the files go."""
     from timg_tpu_torch.render import ansi, sixel_render
 
     d = tempfile.mkdtemp(prefix="timg_stills_")
@@ -2556,6 +2578,8 @@ def stills_phase(dev, reset_counts, read_counts, launches: dict) -> None:
               f"{time.perf_counter() - t_phase:.1f} s (host clock; the "
               f"card's part {t_card:.1f} s, then waiting for the CPU "
               "children)")
+        if after is not None:
+            after(d, streams)
     finally:
         for child in children:
             if child.poll() is None:
@@ -2563,6 +2587,427 @@ def stills_phase(dev, reset_counts, read_counts, launches: dict) -> None:
                 child.wait()
         import shutil
         shutil.rmtree(d, ignore_errors=True)
+
+
+# ---------------------------------------------------------------- serve
+# The resident session: `timg-tpu-torch --serve` on the card, reached by
+# the launcher as a user's shell runs it, with the stills phase's files
+SERVE_CASES = ("photo pq", "photo libsixel", "photo pk", "hdr pq")
+SERVE_WARM = 5              # warm requests timed after the first
+SERVE_TIMED = "photo pq"    # the case of the cold, first and warm times
+SERVE_DELEGATED = "hdr pq"  # sent for another device than the server's
+DELEGATE_ENV = {"TIMG_TPU_TORCH_DEVICE": "cpu", "CUDA_VISIBLE_DEVICES": ""}
+
+
+def launcher_stream(argv: list, out_path: str, env: dict) -> bytes:
+    """One run of the launcher (``timg-tpu-torch``) in a fresh process,
+    booted as its shebang boots it (``python3 -S``, this interpreter),
+    with its stdin and stdout on a pty of STILL_WINSIZE that answers the
+    terminal queries, as ``cli_stream`` runs the CLI; returns the
+    stream."""
+    import fcntl
+    import pty
+    import struct
+    import termios
+    import threading
+
+    master, slave = pty.openpty()
+    fcntl.ioctl(slave, termios.TIOCSWINSZ, struct.pack("HHHH",
+                                                       *STILL_WINSIZE))
+
+    def pump():
+        try:
+            while True:
+                data = os.read(master, 4096)
+                if not data:
+                    return
+                for trigger, reply in STILL_ANSWERS.items():
+                    if trigger in data:
+                        os.write(master, reply)
+        except OSError:
+            return
+
+    threading.Thread(target=pump, daemon=True).start()
+    try:
+        proc = subprocess.run(
+            [sys.executable, "-S", os.path.join(REPO, "timg-tpu-torch"),
+             *argv, "-o", out_path], stdin=slave, stdout=slave,
+            stderr=subprocess.PIPE, env=env, cwd=REPO, timeout=300)
+    finally:
+        os.close(slave)
+        os.close(master)
+    if proc.returncode != 0:
+        fail(f"the launcher exited {proc.returncode} on {' '.join(argv)}:\n"
+             + proc.stderr.decode(errors="replace")[-2000:])
+    with open(out_path, "rb") as f:
+        return f.read()
+
+
+def pinned_kitty_ids(stream: bytes) -> bytes:
+    """A kitty stream with its image ids (clock-seeded in a process that
+    did not pin them, as the resident server) renamed, in order of first
+    appearance, to the ids ``pin_kitty_ids`` gives."""
+    import re
+
+    ids = {}
+
+    def rename(m):
+        new = ids.setdefault(m.group(2), KITTY_ID_START + 1 + len(ids))
+        return m.group(1) + b"%d" % new
+
+    return re.sub(rb"(\033_G[^\033;]*?\bi=)(\d+)", rename, stream)
+
+
+def served_memory(d: str, env: dict, reset_counts, read_counts) -> list:
+    """The serve loop in this process (a thread, on another socket).
+    First each SERVE_CASES case twice, in this process without the
+    server and then served through the launcher, the kernels' launches
+    counted around each: the served request must launch every kernel
+    that the run without the server launched.  Then SERVE_WARM + 1
+    launcher requests of SERVE_TIMED, and after each the caching
+    allocator's (allocated, reserved) MiB on the card: what a resident
+    server keeps across requests."""
+    import threading
+
+    import torch
+
+    from timg_tpu_torch import serve
+
+    sock = os.path.join(d, "memory.sock")
+    ready = threading.Event()
+    server = threading.Thread(
+        target=serve.serve,
+        args=(sock, ready.set, len(SERVE_CASES) + SERVE_WARM + 1),
+        daemon=True)
+    server.start()
+    if not ready.wait(300):
+        fail("serve: the in-process server did not come up")
+    out = os.path.join(d, "memory.out")
+    served_env = dict(env, TIMG_TPU_SERVE_SOCKET=sock)
+    for name in SERVE_CASES:
+        reset_counts()
+        with still_env(name):
+            cli_stream(still_argv(name, d), out)
+        direct = read_counts()
+        reset_counts()
+        launcher_stream(still_argv(name, d), out,
+                        dict(served_env, **STILL_CASES[name][2]))
+        served = {k: v for k, v in read_counts().items() if v}
+        direct = {k: v for k, v in direct.items() if v}
+        missed = [k for k in direct if k not in served]
+        if missed:
+            fail(f"serve {name}: the served request launched no "
+                 f"{', '.join(missed)} kernel (launched in this process "
+                 f"without the server: {direct})")
+        print(f"serve: {name}: launches served {served}, in this process "
+              f"without the server {direct}")
+        if name == SERVE_TIMED and not served:
+            fail(f"serve {name}: the served request launched no kernel")
+    mib = []
+    for _ in range(SERVE_WARM + 1):
+        launcher_stream(still_argv(SERVE_TIMED, d), out, served_env)
+        torch.cuda.synchronize()
+        mib.append((torch.cuda.memory_allocated() / 2**20,
+                    torch.cuda.memory_reserved() / 2**20))
+    server.join(60)
+    return mib
+
+
+def serve_phase(d: str, smi_line: str, reset_counts,
+                read_counts) -> None:
+    """`timg-tpu-torch --serve` on the card, on a socket in a temp dir:
+    its warm-up; the launcher's requests of SERVE_CASES, each stream
+    equal to the stills phase's CPU child's (kitty's ids renamed to the
+    pinned ones); a cold launcher, the first served request and the
+    median of SERVE_WARM warm ones, and the launcher's own start, on the
+    host clock; a request with TIMG_TPU_TORCH_DEVICE=cpu answered 'D' on
+    the socket, then run by the launcher itself on the CPU, with the
+    same bytes; SIGTERM, after which the socket must be gone; then the
+    kernels a served request launches and the device memory a server
+    keeps across requests (``served_memory``)."""
+    import signal
+    import socket
+    import statistics
+
+    sock = os.path.join(d, "serve.sock")
+    env = dict(os.environ, TIMG_TPU_SERVE_SOCKET=sock)
+    env.pop("TIMG_TPU_NO_SERVE", None)
+    t0 = time.perf_counter()
+    server = subprocess.Popen(
+        [sys.executable, os.path.join(REPO, "timg-tpu-torch"), "--serve"],
+        env=env, cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+    try:
+        while not os.path.exists(sock):
+            if server.poll() is not None or time.perf_counter() - t0 > 300:
+                fail("serve: the server did not come up:\n"
+                     + server.stderr.read().decode(errors="replace")[-2000:])
+            time.sleep(0.02)
+        t_warm = time.perf_counter() - t0
+        print(f"serve: the server listens after {t_warm * 1e3:.1f} ms "
+              "(host clock: its python start, torch import, CUDA context, "
+              f"kernel library and native helper loaded); {smi_line}")
+
+        def cpu_stream(name):
+            with open(os.path.join(d, name + ".cpu"), "rb") as f:
+                return f.read()
+
+        def request(name, out, extra=None, pinned=False):
+            case_env = dict(env, **STILL_CASES[name][2], **(extra or {}))
+            t = time.perf_counter()
+            got = launcher_stream(still_argv(name, d), out, case_env)
+            ms = (time.perf_counter() - t) * 1e3
+            if pinned:
+                got = pinned_kitty_ids(got)
+            if got != cpu_stream(name):
+                fail(f"serve {name}: stream ({len(got)} B) != the cpu "
+                     f"stream: " + first_difference(got, cpu_stream(name)))
+            return ms
+
+        out = os.path.join(d, "served.out")
+        t_first = request(SERVE_TIMED, out)
+        for name in SERVE_CASES:
+            if name != SERVE_TIMED:
+                ms = request(name, out, pinned="pk" in name)
+                print(f"serve: {name} served, == its cpu stream, {ms:.1f} "
+                      "ms (host clock, the launcher's process included)")
+        warm = [request(SERVE_TIMED, out) for _ in range(SERVE_WARM)]
+        starts = []
+        for _ in range(3):
+            t = time.perf_counter()
+            subprocess.run([sys.executable, "-S", "-c", "import sys; sys."
+                            f"path.insert(0, {REPO!r}); import "
+                            "timg_tpu_torch.serve"], check=True, timeout=60)
+            starts.append((time.perf_counter() - t) * 1e3)
+        t = time.perf_counter()
+        cold = launcher_stream(still_argv(SERVE_TIMED, d), out,
+                               dict(env, TIMG_TPU_NO_SERVE="1"))
+        t_cold = (time.perf_counter() - t) * 1e3
+        if cold != cpu_stream(SERVE_TIMED):
+            fail("serve: the cold launcher's stream != the cpu stream")
+        print(f"serve: {SERVE_TIMED} ({' '.join(STILL_CASES[SERVE_TIMED][0])}"
+              f" on the 4032x3024 JPEG), the launcher's whole run on the "
+              f"host clock: cold process {t_cold:.1f} ms, first served "
+              f"{t_first:.1f} ms, warm served median of {SERVE_WARM} "
+              f"{statistics.median(warm):.1f} ms (all "
+              f"{', '.join(f'{w:.1f}' for w in warm)}); the launcher's own "
+              f"start (python -S and the serve import, no request) "
+              f"{statistics.median(starts):.1f} ms, median of 3; "
+              f"{smi_line}")
+
+        # delegation: the socket answers D, then the launcher runs it
+        conn = socket.socket(socket.AF_UNIX, socket.SOCK_STREAM)
+        conn.settimeout(60)
+        conn.connect(sock)
+        null = os.open(os.devnull, os.O_RDWR)
+        try:
+            import array
+            conn.sendmsg([b"F"], [(socket.SOL_SOCKET, socket.SCM_RIGHTS,
+                                   array.array("i", [null, null, null]))])
+            req = {"argv": still_argv(SERVE_DELEGATED, d), "cwd": REPO,
+                   "env": dict(env, **DELEGATE_ENV)}
+            conn.sendall(json.dumps(req).encode() + b"\n")
+            answer = conn.recv(64)
+        finally:
+            os.close(null)
+            conn.close()
+        if answer != b"D\n":
+            fail(f"serve: a TIMG_TPU_TORCH_DEVICE=cpu request was answered "
+                 f"{answer!r}, not D")
+        ms = request(SERVE_DELEGATED, out, DELEGATE_ENV)
+        print(f"serve: a TIMG_TPU_TORCH_DEVICE=cpu request: the socket "
+              f"answered D; the launcher ran {SERVE_DELEGATED} itself on "
+              f"the CPU in {ms:.1f} ms, == its cpu stream")
+        server.send_signal(signal.SIGTERM)
+        rc = server.wait(timeout=60)
+        if rc != 0 or os.path.exists(sock):
+            fail(f"serve: after SIGTERM the server exited {rc}, socket "
+                 f"{'still there' if os.path.exists(sock) else 'gone'}")
+        print("serve: SIGTERM: the server exited 0 and removed its socket")
+    finally:
+        if server.poll() is None:
+            server.kill()
+            server.wait()
+    mib = served_memory(d, env, reset_counts, read_counts)
+    print("serve: the serve loop in this process, the caching allocator "
+          "after each request of " + SERVE_TIMED + " (allocated / reserved "
+          "MiB): " + ", ".join(f"{a:.1f} / {r:.1f}" for a, r in mib)
+          + f"; the phase took {time.perf_counter() - t0:.1f} s")
+    if any(a > mib[1][0] or r > mib[1][1] for a, r in mib[2:]):
+        fail("serve: the device memory grew across the warm requests")
+
+
+# ---------------------------------------------------------------- devices
+# --devices: each window's convert and resize (or sws) and the RGBA
+# primers' dither or cells split over the cards; with one card, over
+# cuda:0 four times
+DEVICE_MODES = ("cube", "libsixel", "adaptive", "quarter", "kitty",
+                "cube sws")
+DEVICE_STILLS = ("photo pq", "photo pk")
+# a still of at least 2048x2048 pixels after decode (the JPEG decodes
+# drafted, smaller): the spatial route's input, in -pq
+LARGE_SIZE = (2048, 2560)
+LARGE_ROUNDS = 3            # one card, then the spatial route, in turn
+
+
+@contextlib.contextmanager
+def shard_cards(dev):
+    """While open, the session is sharded: over every card with two or
+    more (TIMG_TPU_DEVICES), else over ``dev`` four times (the routing's
+    device list replaced).  Yields the cards."""
+    import torch
+
+    from timg_tpu_torch.parallel import auto
+
+    n = torch.cuda.device_count()
+    saved = auto.data_devices
+    if n >= 2:
+        os.environ["TIMG_TPU_DEVICES"] = str(n)
+        cards = auto.data_devices()
+    else:
+        cards = [dev] * 4
+        auto.data_devices = lambda: cards
+    try:
+        yield cards
+    finally:
+        auto.data_devices = saved
+        os.environ.pop("TIMG_TPU_DEVICES", None)
+
+
+def devices_phase(dev, d: str, still_streams: dict, reset_counts,
+                  read_counts) -> None:
+    """The routing over cards on the card(s): each DEVICE_MODES window
+    (8 frames) through the port's video window sharded and on one card,
+    byte-equal, with each kernel of the mode launched and each shard's
+    card printed; the stills of DEVICE_STILLS through the CLI with
+    --devices, equal to the stills phase's single-card streams, and the
+    LARGE_SIZE still timed on one card and through the spatial route in
+    turn; the mesh pipelines (parallel/mesh.py) against the unsharded
+    ops.  The sharded runs' launches are printed on a line of their own:
+    the kernels line counts the one-card main path alone."""
+    import torch
+
+    from timg_tpu_torch.ops import pipeline as tpipeline
+    from timg_tpu_torch.ops.resize import resize_video_words
+    from timg_tpu_torch.ops.sixel_kernel import fs_dither_cube_fused
+    from timg_tpu_torch.ops.yuv import yuv420_to_rgba_words
+    from timg_tpu_torch.parallel import auto, mesh
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    t_phase = time.perf_counter()
+    n_cards = torch.cuda.device_count()
+    launches = {}
+    with shard_cards(dev) as cards:
+        print(f"devices: {n_cards} card(s) visible: "
+              + (f"--devices {n_cards}, the CLI's routing over every card"
+                 if n_cards >= 2 else "one card, the routing and the mesh "
+                 "pipelines over cuda:0 repeated four times"))
+    for mode in DEVICE_MODES:
+        sync()
+        t0 = time.perf_counter()
+        single = main_path_stream(mode, N_WINDOW)
+        sync()
+        t_single = time.perf_counter() - t0
+        auto.SHARDS.clear()
+        reset_counts()
+        with shard_cards(dev):
+            t0 = time.perf_counter()
+            sharded = main_path_stream(mode, N_WINDOW)
+            sync()
+            t_sharded = time.perf_counter() - t0
+        counts = read_counts()
+        for k in counts:
+            launches[k] = launches.get(k, 0) + counts[k]
+        sixel = mode.partition(" ")[0] in SIXEL_MODES
+        for k in PATH_KERNELS[mode] + (TRANSPORT_KERNELS["auto"] if sixel
+                                       else ()):
+            if counts[k] <= 0:
+                fail(f"devices {mode}: the sharded window launched no {k} "
+                     "kernel")
+        if sharded != single:
+            fail(f"devices {mode}: the sharded stream != the one-card "
+                 "stream: " + first_difference(sharded, single))
+        print(f"devices: {mode}: an 8-frame window sharded "
+              f"{t_sharded * 1e3:.1f} ms, on one card {t_single * 1e3:.1f} "
+              f"ms (host clock, emit included), == the one-card stream; "
+              f"shards {dict(auto.SHARDS)}; launches {counts}")
+    from PIL import Image
+
+    large = os.path.join(d, "large.png")
+    Image.fromarray(rgba_frames(1, SEED + 11)[0]).resize(
+        LARGE_SIZE[::-1]).save(large, compress_level=1)
+    large_argv = STILL_FLAGS + ["-pq", large]
+    still_streams = dict(still_streams, large=cli_stream(
+        large_argv, os.path.join(d, "large.cuda")))
+    for name in DEVICE_STILLS + ("large",):
+        argv = large_argv if name == "large" else still_argv(name, d)
+        auto.SHARDS.clear()
+        with shard_cards(dev) as cards, (
+                still_env(name) if name in STILL_CASES
+                else contextlib.nullcontext()):
+            t0 = time.perf_counter()
+            got = cli_stream(["--devices", str(len(cards))] + argv,
+                             os.path.join(d, "devices.cuda"))
+            ms = (time.perf_counter() - t0) * 1e3
+        if got != still_streams[name]:
+            fail(f"devices {name}: the --devices stream != the one-card "
+                 "stream: " + first_difference(got, still_streams[name]))
+        print(f"devices: {name} with --devices {len(cards)}: {ms:.1f} ms "
+              f"(host clock), == the one-card stream; shards "
+              f"{dict(auto.SHARDS)}")
+    # the spatial route against one card, in turn, both warm
+    shards = len(cards)
+    times = {"one card": [], "spatial route": []}
+    for _ in range(LARGE_ROUNDS):
+        for route in times:
+            sharded = route == "spatial route"
+            with (shard_cards(dev) if sharded
+                  else contextlib.nullcontext()):
+                flags = ["--devices", str(shards)] if sharded else []
+                t0 = time.perf_counter()
+                got = cli_stream(flags + large_argv,
+                                 os.path.join(d, "devices.cuda"))
+                times[route].append((time.perf_counter() - t0) * 1e3)
+            if got != still_streams["large"]:
+                fail(f"devices large, {route}: another stream")
+    print(f"devices: the {LARGE_SIZE[1]}x{LARGE_SIZE[0]} still in -pq, the "
+          f"whole CLI run (host clock), {LARGE_ROUNDS} rounds in turn: "
+          + "; ".join(f"{route} {', '.join(f'{t:.1f}' for t in ts)} ms"
+                      for route, ts in times.items())
+          + f" (the spatial route over {shards} "
+          + ("cards" if n_cards >= 2 else "shards of cuda:0") + ")")
+    if not any(k[0] == "still_resize" for k in auto.SHARDS):
+        fail(f"devices: the {LARGE_SIZE[1]}x{LARGE_SIZE[0]} still did not "
+             "take the spatial route")
+    with shard_cards(dev) as cards:
+        grid = mesh.make_mesh(4, 2, devices=cards, repeat=True)
+        frames = torch.from_numpy(rgba_frames(4, SEED + 9))
+        out_h, out_w = LIB_BLOCK_SIZE["quarter"]
+        got = mesh.sharded_quarter_pipeline(grid, out_h, out_w)(frames)
+        want = tpipeline.quarter_pipeline(frames.to(dev), out_h, out_w,
+                                          bg_color=(0, 0, 0, 255))
+        if not all(torch.equal(g, w.cpu()) for g, w in zip(got, want)):
+            fail("devices: sharded_quarter_pipeline != quarter_pipeline")
+        ys, us, vs = (torch.from_numpy(p) for p in yuv_frames(6, SEED + 3))
+        got = mesh.sharded_video_sixel_pipeline(
+            grid, OUT_H, OUT_W, yuv=True, full_range=False)(ys, us, vs)
+        words = resize_video_words(yuv420_to_rgba_words(
+            ys.to(dev), us.to(dev), vs.to(dev), False), OUT_H, OUT_W)
+        want = fs_dither_cube_fused(words, OUT_H, OUT_W).cpu()
+        if not torch.equal(got, want):
+            fail("devices: sharded_video_sixel_pipeline != the unsharded "
+                 "convert, resize and cube dither")
+        on_cards = [str(c) for c in grid.devices.flat]
+        print(f"devices: mesh {grid.shape} of {on_cards}: "
+              f"sharded_quarter_pipeline (4 frames of 1080p into "
+              f"{out_h}x{out_w}, height over 'space') and "
+              f"sharded_video_sixel_pipeline (6 frames of 4:2:0 1080p into "
+              f"{OUT_H}x{OUT_W}, padded to 8) == the unsharded ops; the "
+              f"phase took {time.perf_counter() - t_phase:.1f} s")
+    print("devices: launches of the sharded runs (not in the kernels "
+          f"line, which counts the one-card main path): {launches}")
 
 
 def rgba_phase(reset_counts, read_counts, launches: dict,
@@ -2728,6 +3173,21 @@ def main() -> int:
           + (f"libdeflate ({deflate._name})" if deflate is not None else
              "the zlib fallback (no libdeflate on this host); its CPU "
              "children load the same"))
+
+    if sys.argv[1:] == ["--devices-only"]:
+        # the devices phase alone (a host of several cards), its stills'
+        # one-card streams made first on cuda:0
+        d = tempfile.mkdtemp(prefix="timg_devices_")
+        still_inputs(d)
+        streams = {name: cli_stream(still_argv(name, d),
+                                    os.path.join(d, name + ".cuda"))
+                   for name in DEVICE_STILLS}
+        devices_phase(dev, d, streams, reset_counts, read_counts)
+        print(smi_line)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
 
     results = kernel_phase(dev)
     transport_legs(dev)
@@ -2937,7 +3397,12 @@ def main() -> int:
                 child.kill()
                 child.wait()
 
-    stills_phase(dev, reset_counts, read_counts, launches)
+    def later_slices(d, still_streams):
+        serve_phase(d, smi_line, reset_counts, read_counts)
+        devices_phase(dev, d, still_streams, reset_counts, read_counts)
+
+    stills_phase(dev, reset_counts, read_counts, launches,
+                 after=later_slices)
 
     entries = [
         ("yuv420_to_rgba", "convert", "yuv420.cu", "timg_tpu/ops/yuv.py:109"),

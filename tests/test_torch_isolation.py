@@ -20,7 +20,8 @@ FORBIDDEN = ("jax", "jaxlib", "timg_tpu")
 
 
 def _port_sources():
-    out = [os.path.join(REPO, "chip_smoke.py")]
+    out = [os.path.join(REPO, "chip_smoke.py"),
+           os.path.join(REPO, "timg-tpu-torch")]
     for top in (PORT, os.path.join(REPO, "tools")):
         for root, _, files in os.walk(top):
             out += [os.path.join(root, f) for f in files
@@ -41,8 +42,9 @@ def _imported_modules(path):
 
 
 def test_no_module_of_the_port_imports_jax_or_timg_tpu():
-    """An AST walk of every .py under timg_tpu_torch/ and tools/ and of
-    chip_smoke.py, function-level imports included."""
+    """An AST walk of every .py under timg_tpu_torch/ and tools/, of
+    chip_smoke.py and of the launcher, function-level imports
+    included."""
     sources = _port_sources()
     assert len(sources) > 30
     bad = [f"{os.path.relpath(p, REPO)}:{line}: {mod}"
@@ -57,6 +59,8 @@ def test_importing_the_port_loads_no_jax():
         "import timg_tpu_torch.cli, timg_tpu_torch.models\n"
         "import timg_tpu_torch.render.sixel_render\n"
         "import timg_tpu_torch.sources.video_source\n"
+        "import timg_tpu_torch.serve, timg_tpu_torch.version\n"
+        "import timg_tpu_torch.parallel.auto, timg_tpu_torch.parallel.mesh\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
         "print(','.join(bad))\n")

@@ -25,8 +25,19 @@ device, small stills included.
 
 Layer map (entry point down to the device):
 
+  timg-tpu-torch         -- launcher: hands its invocation to a resident
+                            server when one listens (serve.try_serve,
+                            before torch loads), else runs cli.main
+  serve.py               -- --serve: the resident session on the port's
+                            own unix socket (timg_tpu/serve.py's protocol)
+  version.py             -- --version rows (no compiler started)
   cli.py                 -- flag surface & session orchestration
                             (twin of timg_tpu/cli.py; the grid collector)
+  parallel/auto.py       -- --devices: shards of a window over cards
+                            (shard_batch_call), a large still's rows over
+                            them (spatial_shard_call)
+  parallel/mesh.py       -- (data, space) grids and the sharded quarter
+                            and video sixel pipelines
   models/                -- library API: SixelModel (render_batch,
                             render_batch_yuv), the block models, the
                             kitty and iTerm2 models

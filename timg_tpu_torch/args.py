@@ -114,13 +114,14 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--resample", choices=["auto", "sws", "sws-bitexact"],
                    default="auto")
     # timg-tpu extension: shard sustained frame-batch dispatches (video
-    # windows, animations, batched dither planes) over N chips of a
-    # ('data',) jax mesh; "auto" = all visible devices. Default 1.
+    # windows, animations, batched dither planes) over N CUDA cards
+    # (parallel/auto.py); "auto" = all visible cards. Default 1.
     p.add_argument("--devices", type=str, default=None)
     # timg-tpu extension: resident session server (unix socket at
-    # TIMG_TPU_SERVE_SOCKET / $XDG_RUNTIME_DIR/timg-tpu.sock) keeping
-    # the jax session + compile cache warm; one-shot clients delegate
-    # to it and pay a socket round-trip instead of process boot.
+    # TIMG_TPU_SERVE_SOCKET / $XDG_RUNTIME_DIR/timg-tpu-torch.sock,
+    # serve.py) keeping the torch session, CUDA context and kernel
+    # library warm; the timg-tpu-torch launcher sends its invocation
+    # there and pays a socket round-trip instead of process start.
     p.add_argument("--serve", action="store_true")
     p.add_argument("files", nargs="*")
     return p

@@ -14,8 +14,9 @@ every pixel format (with ``--resample=sws`` and
 to one of the latter two as the JAX CLI resolves it), in ``-p quarter``
 / ``-p half`` and in ``-p kitty`` / ``-p iterm2``.  Decode and the PNG
 encode run on the host and everything between them on the device, small
-stills included.  ``--serve`` and ``--devices`` exit with a "not yet
-ported" message.
+stills included.  ``--serve`` runs the resident session (serve.py),
+``--devices`` shards the windows over cards (parallel/auto.py) and
+``--version`` prints the components' rows (version.py).
 The device is ``cuda`` unless TIMG_TPU_TORCH_DEVICE=cpu.
 """
 
@@ -130,17 +131,42 @@ def append_to_filelist(filelist_file: str, relative_to_filelist: bool,
     return True
 
 
-def _not_ported(what: str) -> int:
-    print(f"timg-tpu-torch: {what} is not yet ported to timg_tpu_torch",
-          file=sys.stderr)
-    return EXIT_PARAMETER_ERROR
+class _Held:
+    """What one run opens and must release, even when it returns early
+    or raises (a resident server runs many): the ``-o`` file, the write
+    sequencer and the thread pools."""
+
+    def __init__(self) -> None:
+        self.output_fd: Optional[int] = None
+        self.sequencer: Optional[BufferedWriteSequencer] = None
+        self.executors: List[ThreadPoolExecutor] = []
+
+    def pool(self, workers: int) -> ThreadPoolExecutor:
+        ex = ThreadPoolExecutor(max_workers=workers)
+        self.executors.append(ex)
+        return ex
+
+    def release(self) -> None:
+        if self.sequencer is not None:
+            self.sequencer.shutdown()
+        for ex in self.executors:
+            # queued work is dropped; a running task ends on its own
+            ex.shutdown(wait=False, cancel_futures=True)
+        if self.output_fd is not None:
+            os.close(self.output_fd)
 
 
 def main(argv: Optional[List[str]] = None) -> int:
     global interrupt_received
     interrupt_received = False
-    argv = argv if argv is not None else sys.argv[1:]
+    held = _Held()
+    try:
+        return _run(argv if argv is not None else sys.argv[1:], held)
+    finally:
+        held.release()
 
+
+def _run(argv: List[str], held: _Held) -> int:
     parser = build_arg_parser()
     try:
         args = parser.parse_args(_getopt_optional_args(argv))
@@ -148,14 +174,14 @@ def main(argv: Optional[List[str]] = None) -> int:
         return EXIT_PARAMETER_ERROR
 
     if args.serve:
-        return _not_ported("--serve")
+        # Resident session: hold the warm torch session, CUDA context
+        # and kernel library and serve one-shot invocations over a unix
+        # socket (serve.py); the launcher connects when the socket exists
+        from timg_tpu_torch.serve import serve
+        return serve()
     if args.version:
-        import torch
-
-        from timg_tpu_torch import __version__
-        cuda = torch.version.cuda or "none"
-        print(f"timg-tpu-torch {__version__}; torch {torch.__version__}, "
-              f"CUDA {cuda}")
+        from timg_tpu_torch.version import print_component_versions
+        print_component_versions()
         return EXIT_SUCCESS
     if args.long_help:
         from timg_tpu_torch.help import invoke_help_pager
@@ -163,8 +189,6 @@ def main(argv: Optional[List[str]] = None) -> int:
     if args.short_help:
         parser.print_help()
         return EXIT_SUCCESS
-    if args.devices:
-        return _not_ported("--devices")
 
     from timg_tpu_torch.ops import backend
     try:
@@ -290,6 +314,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         try:
             output_fd = os.open(args.outfile,
                                 os.O_WRONLY | os.O_CREAT | os.O_TRUNC, 0o664)
+            held.output_fd = output_fd
         except OSError as e:
             print(f"{args.outfile}: {e.strerror}", file=sys.stderr)
             return EXIT_CANT_OPEN_OUTPUT
@@ -308,6 +333,11 @@ def main(argv: Optional[List[str]] = None) -> int:
     present.use_256_color = args.color8
     present.hide_cursor = not args.no_hide_cursor
     present.sixel_dither = args.dither
+    if args.devices:
+        # Multi-card routing knob (parallel/auto.py reads the env so the
+        # dispatch sites stay import-light); the flag wins over an
+        # inherited TIMG_TPU_DEVICES.
+        os.environ["TIMG_TPU_DEVICES"] = args.devices
 
     filelist: List[str] = []
     for fl in args.filelist:
@@ -425,7 +455,7 @@ def main(argv: Optional[List[str]] = None) -> int:
 
     if bg_color.lower() == "auto":
         from timg_tpu_torch.term import query_background_color
-        pool0 = ThreadPoolExecutor(max_workers=1)
+        pool0 = held.pool(1)
         bg_future = pool0.submit(
             lambda: parse_color(query_background_color()))
         cache: dict = {}
@@ -458,8 +488,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         display.batch_collector = GridBatchCollector(len(filelist))
 
     thread_count = args.threads or _default_thread_count()
-    pool = ThreadPoolExecutor(
-        max_workers=max(1, min(thread_count, len(filelist) + 1)))
+    pool = held.pool(max(1, min(thread_count, len(filelist) + 1)))
     errors: List[str] = []
     exit_code = EXIT_SUCCESS
     load_failed = False
@@ -498,10 +527,11 @@ def main(argv: Optional[List[str]] = None) -> int:
         debug_no_frame_delay=args.debug_no_frame_delay,
         interrupt_flag=lambda: interrupt_received,
     )
+    held.sequencer = sequencer
 
     start_show = time.monotonic()
     successful, any_animations = _present_images(
-        loaded, display, present, sequencer)
+        loaded, display, present, sequencer, held)
     duration = time.monotonic() - start_show
     sequencer.shutdown()
 
@@ -563,7 +593,7 @@ def _resolve_auto_dither(loaded) -> str:
     return "libsixel"
 
 
-def _present_images(loaded, display, present, sequencer):
+def _present_images(loaded, display, present, sequencer, held: _Held):
     """Twin of timg_tpu/cli.py:_present_images; ``--dither=auto``
     resolves with the JAX CLI's policy, so both CLIs pick the same mode
     for the same session."""
@@ -574,7 +604,7 @@ def _present_images(loaded, display, present, sequencer):
         present.sixel_dither = _resolve_auto_dither(loaded)
         display.sixel_batch_dither = present.sixel_dither
 
-    canvas = _make_canvas(sequencer, display, present)
+    canvas = _make_canvas(sequencer, display, present, held)
     renderer = Renderer.create(
         canvas, display, present.grid_cols, present.grid_rows,
         present.duration_between_images_ms, present.duration_for_row_ms)
@@ -612,13 +642,13 @@ def _present_images(loaded, display, present, sequencer):
     return valid, any_animations
 
 
-def _make_canvas(sequencer, display, present):
+def _make_canvas(sequencer, display, present, held: _Held):
     """The port's kitty, iTerm2 or sixel canvas with a compression pool
     sized queue_len + 1, or its unicode block canvas, like
     timg_tpu/cli.py:_make_canvas."""
     def compression_pool():
         # pool sized queue_len + 1, like the reference (timg.cc:321-336)
-        return ThreadPoolExecutor(max_workers=sequencer.max_queue_len + 1)
+        return held.pool(sequencer.max_queue_len + 1)
 
     if present.pixelation == Pixelation.KITTY:
         from timg_tpu_torch.render.kitty import KittyCanvas

@@ -585,8 +585,9 @@ sws_unscaled(const uint8_t* __restrict__ y, const uint8_t* __restrict__ u,
 }
 
 
-// A kernel's dynamic shared memory above the default 48 KB, raised once
-// to the most any launch has asked for.
+// A kernel's dynamic shared memory above the default 48 KB is an
+// attribute of the device current at the call, so it is set on every
+// launch that needs it (a process may launch on several cards).
 template <bool FULL, int KF>
 cudaError_t launch_tiled(dim3 grid, cudaStream_t s, const uint8_t* y,
                          const uint8_t* u, const uint8_t* v, int h, int w,
@@ -594,13 +595,11 @@ cudaError_t launch_tiled(dim3 grid, cudaStream_t s, const uint8_t* y,
                          int tmpl, bool aligned_l, bool aligned_c,
                          const Tables& t, const Tile& g, const Consts& c,
                          int32_t* out) {
-  static int raised = 48 * 1024;
-  if (g.smem > raised) {
+  if (g.smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         sws_tiled<FULL, KF>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         g.smem);
     if (e != cudaSuccess) return e;
-    raised = g.smem;
   }
   sws_tiled<FULL, KF><<<grid, kThreads, g.smem, s>>>(
       y, u, v, h, w, ch, cw, dst_h, dst_w, chr_dst_w, tmpl, aligned_l,

@@ -233,20 +233,32 @@ TIMG-TPU EXTENSIONS
 
     --devices=<n|auto>
         Shard sustained frame-batch work (video windows, animations,
-        batched dither planes) over n chips of a jax ('data',) device
-        mesh; 'auto' uses every visible device. Single very large
-        stills (2K+/4K) additionally split their height over a
-        ('data','space') mesh so one image uses every chip. Output is
-        byte-identical to the single-device run. Default 1.
+        batched dither planes) over n CUDA cards, cuda:0 to cuda:n-1,
+        each shard's kernels launched on its own card; 'auto' uses
+        every visible card, and n is clamped to the cards there are.
+        Single very large stills (2048x2048 pixels and up) also split
+        their rows over the cards so one image uses every card. Output
+        is byte-identical to the single-card run. Default 1.
 
     --serve
-        Resident session mode: hold this process warm (jax session,
-        compile cache, jitted kernels) and serve one-shot invocations
-        over a unix socket ($XDG_RUNTIME_DIR/timg-tpu.sock, override
-        TIMG_TPU_SERVE_SOCKET). Clients pass their terminal fds, so
-        served runs behave exactly like direct ones; timg-tpu-fast
-        delegates automatically when the socket exists
-        (TIMG_TPU_NO_SERVE=1 disables). Byte-identical to cold runs.
+        Resident session mode: hold this process warm (torch session,
+        CUDA context, kernel library, native helper) and serve
+        one-shot invocations over a unix socket
+        ($XDG_RUNTIME_DIR/timg-tpu-torch.sock, else
+        /tmp/timg-tpu-torch-<uid>.sock; override TIMG_TPU_SERVE_SOCKET).
+        Clients pass their terminal fds, so served runs behave exactly
+        like direct ones; the timg-tpu-torch launcher sends its
+        invocation there, before importing torch, whenever the socket
+        exists (TIMG_TPU_NO_SERVE=1 disables). The socket is created
+        0600; the launcher uses it only when its own user owns it and
+        the server runs as that user, and the server serves only peers
+        of its own uid. A request for another TIMG_TPU_TORCH_DEVICE,
+        CUDA_VISIBLE_DEVICES or CUDA_DEVICE_ORDER, or a nested --serve,
+        is handed back to the launcher, which runs it itself. Each
+        request is cut off
+        after TIMG_TPU_SERVE_REQUEST_TIMEOUT seconds (default 300).
+        SIGTERM or SIGINT stops the server and removes the socket.
+        Byte-identical to cold runs.
 
 ENVIRONMENT
     TIMG_DEFAULT_TITLE

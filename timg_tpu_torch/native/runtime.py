@@ -136,6 +136,8 @@ def _bind_native(lib: ctypes.CDLL) -> ctypes.CDLL:
 
 
 def _bind_video(lib: ctypes.CDLL) -> ctypes.CDLL:
+    lib.timg_video_version.restype = ctypes.c_char_p
+    lib.timg_video_device_capture_available.restype = ctypes.c_int
     lib.timg_video_open.restype = ctypes.c_void_p
     lib.timg_video_open.argtypes = [ctypes.c_char_p]
     lib.timg_video_info.argtypes = [
@@ -174,6 +176,31 @@ def load_video() -> Optional[ctypes.CDLL]:
     """The libav video library (built on first call); None where libav
     is missing."""
     return _load("video", _bind_video)
+
+
+def _fresh(name: str) -> bool:
+    out = lib_path(name)
+    return (os.path.exists(out)
+            and os.path.getmtime(out) >= os.path.getmtime(source_path(name)))
+
+
+def describe() -> str:
+    """One line for ``--version`` (timg_tpu/native/runtime.py:describe):
+    the libav decoder's version and the C assembler and emitter, each as
+    built, or why not.  Loads only libraries already built and fresh:
+    it never starts the compiler."""
+    if _fresh("video"):
+        lib = load_video()
+        video = (lib.timg_video_version().decode() if lib is not None
+                 else "video decoder unavailable")
+        if lib is not None and lib.timg_video_device_capture_available():
+            # ref prints "; avdevice <version>" when built with it
+            video += "; avdevice (v4l2 capture)"
+    else:
+        video = "video decoder not built"
+    native = ("C sixel assembler; ansi emitter" if _fresh("native")
+              and load() is not None else "C sixel assembler not built")
+    return f"{video}; {native}"
 
 
 def build_error(name: str) -> str:

@@ -72,11 +72,12 @@ def _cells_cuda(entry: str, counter: str, cell_w: int, words: torch.Tensor,
                                      words.device)
     if glyph.numel() == 0:
         return glyph, fg, bg, eq
-    _build.check(getattr(_lib(), entry)(
-        words.data_ptr(), prev.data_ptr() if prev is not None else None, b,
-        th, tw, int(bool(use_upper)), glyph.data_ptr(), fg.data_ptr(),
-        bg.data_ptr(), eq.data_ptr() if diff else None,
-        _stream(words.device.index)), entry)
+    with torch.cuda.device(words.device):  # the C launch's current device
+        _build.check(getattr(_lib(), entry)(
+            words.data_ptr(), prev.data_ptr() if prev is not None else None,
+            b, th, tw, int(bool(use_upper)), glyph.data_ptr(),
+            fg.data_ptr(), bg.data_ptr(), eq.data_ptr() if diff else None,
+            _stream(words.device.index)), entry)
     globals()[counter] += 1
     return glyph, fg, bg, eq
 

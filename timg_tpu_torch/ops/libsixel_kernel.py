@@ -109,9 +109,11 @@ def build_bucket_tables_cuda(pals: torch.Tensor) -> torch.Tensor:
     b = pals.shape[0]
     out = torch.empty((b, N_BUCKETS), dtype=torch.uint8, device=pals.device)
     stream = torch.cuda.current_stream(pals.device).cuda_stream
-    _build.check(_lib().timg_bucket_tables(
-        ctypes.c_void_p(pals.data_ptr()), b, ctypes.c_void_p(out.data_ptr()),
-        ctypes.c_void_p(stream)), "bucket_tables")
+    with torch.cuda.device(pals.device):  # the C launch's current device
+        _build.check(_lib().timg_bucket_tables(
+            ctypes.c_void_p(pals.data_ptr()), b,
+            ctypes.c_void_p(out.data_ptr()), ctypes.c_void_p(stream)),
+            "bucket_tables")
     BUCKET_LAUNCHES += 1
     return out
 

@@ -370,22 +370,27 @@ def _accumulate(taps, widest: int, horizontal: bool):
 
 
 def _apply_axis(x: torch.Tensor, axis: int, starts: np.ndarray,
-                coeffs: np.ndarray, horizontal: bool) -> torch.Tensor:
+                coeffs: np.ndarray, horizontal: bool, n: int = 0,
+                offset: int = 0) -> torch.Tensor:
     """1-D filter along ``axis``: output o sums
-    ``x[starts[o] + t] * coeffs[o, t]`` in stb's order."""
-    n = x.shape[axis]
+    ``x[starts[o] + t] * coeffs[o, t]`` in stb's order, the index
+    clamped to the axis' ``n`` inputs (default: all of ``x``'s), of
+    which ``x`` holds those from ``offset`` on."""
+    n = n or x.shape[axis]
     idx = torch.from_numpy(starts.astype(np.int64)).to(x.device)
     cf = torch.from_numpy(np.ascontiguousarray(coeffs)).to(x.device)
     shape = [1] * x.dim()
     shape[axis] = -1
     return _accumulate(
-        lambda t: x.index_select(axis, torch.clamp(idx + t, 0, n - 1))
+        lambda t: x.index_select(axis, torch.clamp(idx + t, 0, n - 1)
+                                 - offset)
         * cf[:, t].reshape(shape),
         coeffs.shape[1], horizontal)
 
 
 def _resize_impl(frames: torch.Tensor, taps_h, taps_w, vertical_first: bool,
-                 alpha_weighted: bool) -> torch.Tensor:
+                 alpha_weighted: bool, in_h: int = 0,
+                 row0: int = 0) -> torch.Tensor:
     dev = frames.device
     f32 = lambda v: torch.tensor(v, dtype=torch.float32, device=dev)
     x = frames.to(torch.float32) * f32(np.float32(1.0 / 255.0))
@@ -394,11 +399,13 @@ def _resize_impl(frames: torch.Tensor, taps_h, taps_w, vertical_first: bool,
         x = torch.cat([x, x[..., :3] * a], dim=-1)          # [B,H,W,7]
 
     if vertical_first:
-        x = _apply_axis(x, 1, *taps_h, horizontal=False)
+        x = _apply_axis(x, 1, *taps_h, horizontal=False, n=in_h,
+                        offset=row0)
         x = _apply_axis(x, 2, *taps_w, horizontal=True)
     else:
         x = _apply_axis(x, 2, *taps_w, horizontal=True)
-        x = _apply_axis(x, 1, *taps_h, horizontal=False)
+        x = _apply_axis(x, 1, *taps_h, horizontal=False, n=in_h,
+                        offset=row0)
 
     if alpha_weighted:
         alpha = x[..., 3:4]
@@ -437,6 +444,33 @@ def resize_batch(
                                  downsample_filter, alpha_weighted)
     return _resize_impl(frames, taps_h, taps_w, vertical_first,
                         alpha_weighted)
+
+
+def input_rows(in_h: int, out_h: int, o0: int, o1: int) -> tuple:
+    """The input rows ``(i0, i1)`` that output rows ``o0 .. o1`` of
+    ``resize_batch`` read (their vertical taps, clamped at the edges)."""
+    starts, coeffs = packed_taps(in_h, out_h, STB_UPSAMPLE_FILTER,
+                                 STB_DOWNSAMPLE_FILTER, False)
+    first = int(starts[o0:o1].min())
+    last = int(starts[o0:o1].max()) + coeffs.shape[1] - 1
+    return (min(max(first, 0), in_h - 1), min(max(last, 0), in_h - 1) + 1)
+
+
+def resize_batch_rows(band: torch.Tensor, in_h: int, out_h: int, out_w: int,
+                      row0: int, o0: int, o1: int) -> torch.Tensor:
+    """Output rows ``o0 .. o1`` of ``resize_batch`` of [B, in_h, W, 4]
+    frames to out_h x out_w, from ``band``, the frames' rows ``row0 ..``
+    holding every row ``input_rows(in_h, out_h, o0, o1)`` names.  Each
+    output row is its own taps' elementwise sums in the whole frame's
+    order, so a band writes the whole frame's bytes (the spatial route
+    of parallel/auto.py)."""
+    in_w = band.shape[2]
+    up, down = STB_UPSAMPLE_FILTER, STB_DOWNSAMPLE_FILTER
+    starts, coeffs = packed_taps(in_h, out_h, up, down, False)
+    taps_w = packed_taps(in_w, out_w, up, down, True)
+    vertical_first = plan_passes(in_h, in_w, out_h, out_w, up, down, True)
+    return _resize_impl(band, (starts[o0:o1], coeffs[o0:o1]), taps_w,
+                        vertical_first, True, in_h=in_h, row0=row0)
 
 
 def resize_nearest(frames: torch.Tensor, out_h: int,

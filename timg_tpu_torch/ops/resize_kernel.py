@@ -102,13 +102,14 @@ def resize_video_words_cuda(words: torch.Tensor, out_h: int,
     out = torch.empty((b, out_h, out_w), dtype=torch.int32, device=dev)
     ptr = lambda t: ctypes.c_void_p(t.data_ptr())
     wide = in_w % 4 == 0 and words.data_ptr() % 16 == 0
-    _build.check(_lib().timg_resize_words(
-        ptr(words), b, in_h, in_w, ptr(sv), ptr(tv), plan.taps_v, out_h,
-        ptr(sh), ptr(th), plan.taps_h, out_w, int(plan.vertical_first),
-        plan.rows, plan.cols, ptr(win_v), ptr(win_h), plan.mid_n,
-        plan.stage_n, int(wide), ptr(out),
-        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)),
-        "resize_words")
+    with torch.cuda.device(dev):         # the C launch's current device
+        _build.check(_lib().timg_resize_words(
+            ptr(words), b, in_h, in_w, ptr(sv), ptr(tv), plan.taps_v, out_h,
+            ptr(sh), ptr(th), plan.taps_h, out_w, int(plan.vertical_first),
+            plan.rows, plan.cols, ptr(win_v), ptr(win_h), plan.mid_n,
+            plan.stage_n, int(wide), ptr(out),
+            ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)),
+            "resize_words")
     LAUNCHES += 1
     return out
 
@@ -127,28 +128,29 @@ def _resize_passes(words: torch.Tensor, out_h: int,
     stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
     ptr = lambda t: ctypes.c_void_p(t.data_ptr())
     out = torch.empty((b, out_h, out_w), dtype=torch.int32, device=dev)
-    if vertical_first(in_h, in_w, out_h, out_w):
-        mid = torch.empty((b, 3, out_h, in_w), dtype=torch.bfloat16,
-                          device=dev)
-        _build.check(lib.timg_resize_words_to_mid(
-            ptr(words), b, in_h, in_w, ptr(sv), ptr(tv), tv.shape[1],
-            _blocks(in_h, out_h, False), out_h, ptr(mid), stream),
-            "resize_words_to_mid")
-        _build.check(lib.timg_resize_mid_to_words(
-            ptr(mid), b, out_h, in_w, ptr(sh), ptr(th), th.shape[1],
-            _blocks(in_w, out_w, True), 0, out_w, ptr(out), stream),
-            "resize_mid_to_words")
-    else:
-        taps16, dst, nb_max = _device_slot_taps(in_w, out_w, dev)
-        mid = torch.empty((b, 3, in_h, out_w), dtype=torch.bfloat16,
-                          device=dev)
-        _build.check(lib.timg_resize_rows_to_mid(
-            ptr(words), b, in_h, in_w, ptr(taps16), ptr(dst),
-            taps16.shape[2], ptr(sh), th.shape[1], nb_max, out_w, ptr(mid),
-            stream), "resize_rows_to_mid")
-        _build.check(lib.timg_resize_mid_to_words(
-            ptr(mid), b, in_h, out_w, ptr(sv), ptr(tv), tv.shape[1],
-            _blocks(in_h, out_h, False), 1, out_h, ptr(out), stream),
-            "resize_mid_to_words")
+    with torch.cuda.device(dev):         # the C launches' current device
+        if vertical_first(in_h, in_w, out_h, out_w):
+            mid = torch.empty((b, 3, out_h, in_w), dtype=torch.bfloat16,
+                              device=dev)
+            _build.check(lib.timg_resize_words_to_mid(
+                ptr(words), b, in_h, in_w, ptr(sv), ptr(tv), tv.shape[1],
+                _blocks(in_h, out_h, False), out_h, ptr(mid), stream),
+                "resize_words_to_mid")
+            _build.check(lib.timg_resize_mid_to_words(
+                ptr(mid), b, out_h, in_w, ptr(sh), ptr(th), th.shape[1],
+                _blocks(in_w, out_w, True), 0, out_w, ptr(out), stream),
+                "resize_mid_to_words")
+        else:
+            taps16, dst, nb_max = _device_slot_taps(in_w, out_w, dev)
+            mid = torch.empty((b, 3, in_h, out_w), dtype=torch.bfloat16,
+                              device=dev)
+            _build.check(lib.timg_resize_rows_to_mid(
+                ptr(words), b, in_h, in_w, ptr(taps16), ptr(dst),
+                taps16.shape[2], ptr(sh), th.shape[1], nb_max, out_w, ptr(mid),
+                stream), "resize_rows_to_mid")
+            _build.check(lib.timg_resize_mid_to_words(
+                ptr(mid), b, in_h, out_w, ptr(sv), ptr(tv), tv.shape[1],
+                _blocks(in_h, out_h, False), 1, out_h, ptr(out), stream),
+                "resize_mid_to_words")
     PASS_LAUNCHES += 1
     return out

@@ -69,9 +69,10 @@ def dcs_band_lens_cuda(planes: torch.Tensor, h: int, w: int,
     lens = torch.empty((b, nb), dtype=torch.int32, device=planes.device)
     counts = torch.empty_like(lens)
     if b:
-        _build.check(_lib().timg_dcs_band_lens(
-            _ptr(planes), b, h, w, planes.stride(0), planes.stride(1),
-            _ptr(lens), _ptr(counts), _stream(planes)), "dcs_band_lens")
+        with torch.cuda.device(planes.device):
+            _build.check(_lib().timg_dcs_band_lens(
+                _ptr(planes), b, h, w, planes.stride(0), planes.stride(1),
+                _ptr(lens), _ptr(counts), _stream(planes)), "dcs_band_lens")
         LENS_LAUNCHES += 1
     return lens, counts
 
@@ -87,8 +88,9 @@ def dcs_emit_cuda(planes: torch.Tensor, h: int, w: int, color_cap: int,
                         device=planes.device)
     lens = torch.empty((b, nb), dtype=torch.int32, device=planes.device)
     if b:
-        _build.check(_lib().timg_dcs_emit(
-            _ptr(planes), b, h, w, planes.stride(0), planes.stride(1), cap,
-            _ptr(bands), _ptr(lens), _stream(planes)), "dcs_emit")
+        with torch.cuda.device(planes.device):
+            _build.check(_lib().timg_dcs_emit(
+                _ptr(planes), b, h, w, planes.stride(0), planes.stride(1),
+                cap, _ptr(bands), _ptr(lens), _stream(planes)), "dcs_emit")
         EMIT_LAUNCHES += 1
     return bands, lens

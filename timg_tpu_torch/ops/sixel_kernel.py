@@ -349,9 +349,10 @@ def _launch(entry: str, data: list, b: int, h: int, w: int,
     ptr = lambda t: ctypes.c_void_p(t.data_ptr())
     args = [ptr(a) if isinstance(a, torch.Tensor) else a for a in data]
     stream = torch.cuda.current_stream(dev).cuda_stream
-    _build.check(getattr(_lib(), f"timg_fs_dither_{entry}")(
-        *args, ptr(out), int(out_u8), plan.bands, plan.warps, ptr(sync),
-        ptr(carries), n, ctypes.c_void_p(stream)), f"fs_dither_{entry}")
+    with torch.cuda.device(dev):         # the C launch's current device
+        _build.check(getattr(_lib(), f"timg_fs_dither_{entry}")(
+            *args, ptr(out), int(out_u8), plan.bands, plan.warps, ptr(sync),
+            ptr(carries), n, ctypes.c_void_p(stream)), f"fs_dither_{entry}")
     return out
 
 

@@ -70,9 +70,10 @@ def band_run_counts_cuda(planes: torch.Tensor, h: int, w: int):
     counts = torch.empty((b, (h + 5) // 6), dtype=torch.int32,
                          device=planes.device)
     if b:
-        _build.check(_lib().timg_band_run_counts(
-            _ptr(planes), b, h, w, planes.stride(0), planes.stride(1),
-            _ptr(counts), _stream(planes)), "band_run_counts")
+        with torch.cuda.device(planes.device):
+            _build.check(_lib().timg_band_run_counts(
+                _ptr(planes), b, h, w, planes.stride(0), planes.stride(1),
+                _ptr(counts), _stream(planes)), "band_run_counts")
         COUNT_LAUNCHES += 1
     return counts
 
@@ -93,9 +94,11 @@ def compact_records_cuda(planes: torch.Tensor, h: int, w: int,
         raise ValueError(f"compact_records_cuda: n = {n} < 0")
     records = torch.empty((b, n, 2), dtype=torch.int32, device=planes.device)
     if b and n:
-        _build.check(_lib().timg_compact_runs(
-            _ptr(planes), b, h, w, planes.stride(0), planes.stride(1),
-            _ptr(counts), n, _ptr(records), _stream(planes)), "compact_runs")
+        with torch.cuda.device(planes.device):
+            _build.check(_lib().timg_compact_runs(
+                _ptr(planes), b, h, w, planes.stride(0), planes.stride(1),
+                _ptr(counts), n, _ptr(records), _stream(planes)),
+                "compact_runs")
         COMPACT_LAUNCHES += 1
     return records
 

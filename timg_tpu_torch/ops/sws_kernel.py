@@ -97,13 +97,14 @@ def sws_yuv420_to_rgba_words_cuda(y: torch.Tensor, u: torch.Tensor,
     hp, hc, cp, cc, vp, vc, vcp, vcc, strips, steps, chunks, slots = tables
     consts = (ctypes.c_int * 6)(*plan.constants())
     fl, fc = plan.h_lum_coef.shape[1], plan.h_chr_coef.shape[1]
-    _build.check(_lib().timg_sws_yuv420_to_rgba_words(
-        ptr(y), ptr(u), ptr(v), b, h, w, ch, cw, plan.dst_h, plan.dst_w,
-        plan.chr_dst_w, hp, hc, fl, cp, cc, fc, vp, vc, plan.v_lum_size,
-        vcp, vcc, plan.v_chr_size, plan.template, int(plan.full_chroma),
-        int(plan.unscaled), consts, tile, strips, steps, chunks, slots,
-        ptr(out),
-        ctypes.c_void_p(torch.cuda.current_stream(y.device).cuda_stream)),
-        "sws_yuv420_to_rgba_words")
+    with torch.cuda.device(y.device):    # the C launch's current device
+        _build.check(_lib().timg_sws_yuv420_to_rgba_words(
+            ptr(y), ptr(u), ptr(v), b, h, w, ch, cw, plan.dst_h, plan.dst_w,
+            plan.chr_dst_w, hp, hc, fl, cp, cc, fc, vp, vc, plan.v_lum_size,
+            vcp, vcc, plan.v_chr_size, plan.template, int(plan.full_chroma),
+            int(plan.unscaled), consts, tile, strips, steps, chunks, slots,
+            ptr(out), ctypes.c_void_p(
+                torch.cuda.current_stream(y.device).cuda_stream)),
+            "sws_yuv420_to_rgba_words")
     LAUNCHES += 1
     return out

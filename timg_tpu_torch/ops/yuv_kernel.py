@@ -56,9 +56,10 @@ def yuv420_to_rgba_words_cuda(y: torch.Tensor, u: torch.Tensor,
     if out.numel() == 0:
         return out
     ptr = lambda t: ctypes.c_void_p(t.data_ptr())
-    _build.check(_lib().timg_yuv420_to_rgba_words(
-        ptr(y), ptr(u), ptr(v), b, h, w, ch, cw, int(bool(full_range)),
-        ptr(out), ctypes.c_void_p(torch.cuda.current_stream(
-            y.device).cuda_stream)), "yuv420_to_rgba_words")
+    with torch.cuda.device(y.device):    # the C launch's current device
+        _build.check(_lib().timg_yuv420_to_rgba_words(
+            ptr(y), ptr(u), ptr(v), b, h, w, ch, cw, int(bool(full_range)),
+            ptr(out), ctypes.c_void_p(torch.cuda.current_stream(
+                y.device).cuda_stream)), "yuv420_to_rgba_words")
     LAUNCHES += 1
     return out

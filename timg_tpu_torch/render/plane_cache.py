@@ -42,6 +42,13 @@ window diff.  There is no host route for small windows: every window
 runs on ``backend.device()``.  A one-shot libsixel still is the
 exception the JAX package makes too: the canvas quantizes it with
 libsixel's own C quantizer, as the reference does.
+
+With more than one card (``--devices``, parallel/auto.py) the video
+device windows step aside, as the JAX package's do: the video source
+then converts and resizes each window sharded over the cards, fetches
+the frames, and the RGBA window primers run the dither or the block
+cells of each shard of frames on its own card; each shard's index planes
+go through the transport on that card.
 """
 
 from __future__ import annotations
@@ -68,6 +75,7 @@ from timg_tpu_torch.ops.sixel_np import median_cut_tree
 from timg_tpu_torch.ops.sixel_runs import fetch_planes_or_runs
 from timg_tpu_torch.ops.sws_resize import sws_yuv420_to_rgba_words
 from timg_tpu_torch.ops.yuv import yuv420_to_rgba_words
+from timg_tpu_torch.parallel import auto
 from timg_tpu_torch.utils import get_bool_env
 
 _MAX = 64
@@ -101,6 +109,10 @@ class PlaneCache:
             del self._entries[id(frame)]
             return None
         return entry[1]
+
+    def clear(self) -> None:
+        """Drop every entry (the resident server's end of a request)."""
+        self._entries.clear()
 
 
 BLOCK_PLANES = PlaneCache()
@@ -188,12 +200,15 @@ def prime_sixel_video_device(ys, us, vs, th: int, tw: int,
 
     ys/us/vs: [B, H, W] / [B, ceil(H/2), ceil(W/2)] uint8 numpy planes.
     Returns B DeviceFrame placeholders and parks each frame's
-    (index plane, palette, quantizer) in SIXEL_PLANES for the canvas.
+    (index plane, palette, quantizer) in SIXEL_PLANES for the canvas, or
+    None in a session sharded over cards.
     ``state`` (owned by the source) keeps the VideoStage of the current
     geometry and, for ``adaptive``, the tree of the video."""
     mode = getattr(options, "sixel_batch_dither", None)
     if mode not in ("cube", "libsixel", "adaptive"):
         raise not_ported(f"--dither={mode}")
+    if auto.data_devices() is not None:
+        return None       # sharded sessions take the RGBA window primers
     b = ys.shape[0]
     padded_h = th + 5 - (th + 5) % 6
     bg = options.bgcolor_getter() if options.bgcolor_getter else None
@@ -234,8 +249,9 @@ def prime_sixel_video_device(ys, us, vs, th: int, tw: int,
 def stage_window(state: dict, ys, us, vs, th: int, tw: int,
                  full_range: bool, padded_h: int, bg_word: int,
                  resample: str = "lean") -> torch.Tensor:
-    """The window's planes to the device, through the VideoStage of this
-    geometry (kept in ``state``): [B, padded_h, tw] int32 words."""
+    """The window's planes to the device (numpy planes; tensors stay on
+    their own device, as a shard on its card), through the VideoStage of
+    this geometry (kept in ``state``): [B, padded_h, tw] int32 words."""
     dev = backend.device()
     key = (ys.shape[1], ys.shape[2], th, tw, full_range, padded_h, bg_word,
            resample, dev)
@@ -244,7 +260,8 @@ def stage_window(state: dict, ys, us, vs, th: int, tw: int,
         stage = (key, VideoStage(th, tw, full_range, padded_h, bg_word,
                                  resample))
         state["video_stage"] = stage
-    planes = [torch.from_numpy(np.ascontiguousarray(p)).to(dev)
+    planes = [p if isinstance(p, torch.Tensor) else
+              torch.from_numpy(np.ascontiguousarray(p)).to(dev)
               for p in (ys, us, vs)]
     return stage[1](*planes)
 
@@ -262,11 +279,14 @@ def prime_block_video_device(ys, us, vs, th: int, tw: int,
 
     Returns B DeviceFrame placeholders and parks each frame's planes in
     BLOCK_PLANES, or None for odd-width quarter frames, which the canvas
-    renders one by one (widened as the reference reads them)."""
+    renders one by one (widened as the reference reads them), and in a
+    session sharded over cards."""
     if options.cell_x_px > 2 or options.cell_y_px != 2:
         return None
     quarter = options.cell_x_px == 2
     if quarter and tw % 2:
+        return None
+    if auto.data_devices() is not None:
         return None
     b = ys.shape[0]
     use_upper = get_bool_env("TIMG_USE_UPPER_BLOCK")
@@ -310,13 +330,14 @@ def prime_pixel_video_device(ys, us, vs, th: int, tw: int,
     deflate.
 
     Returns None where the window does not apply, as the JAX package
-    does: sixel and block sessions (their own windows), and
-    TIMG_TPU_VIDEO_DEVICE_WINDOW=0.  The port has no host or numpy mode:
-    every window runs on ``backend.device()``."""
+    does: sixel and block sessions (their own windows), sessions sharded
+    over cards, and TIMG_TPU_VIDEO_DEVICE_WINDOW=0.  The port has no
+    host or numpy mode: every window runs on ``backend.device()``."""
     if getattr(options, "sixel_batch_dither", None) is not None \
             or options.cell_y_px == 2:
         return None
-    if os.environ.get("TIMG_TPU_VIDEO_DEVICE_WINDOW", "1") == "0":
+    if os.environ.get("TIMG_TPU_VIDEO_DEVICE_WINDOW", "1") == "0" \
+            or auto.data_devices() is not None:
         return None
     words = stage_window(state, ys, us, vs, th, tw, full_range, th, 0,
                          resample)
@@ -347,12 +368,35 @@ def table_dither(words: torch.Tensor, pals: list, diffs: list, h: int,
     """libsixel's integer FS of a [B, >=h, >=w] words window on its
     device, each frame with its own palette and diffuse flag: the bucket
     tables, then the table dither -> [B, h, w] uint8 indices."""
-    # uint8 palettes: channels in [0, 255], as the bucket kernel needs
-    pals_dev = torch.from_numpy(pad_palettes(pals)).to(words.device)
-    diffs_dev = torch.tensor(diffs, dtype=torch.int32, device=words.device)
+    return _table_dither(words, torch.from_numpy(pad_palettes(pals)),
+                         torch.tensor(diffs, dtype=torch.int32), h, w)
+
+
+def _table_dither(words: torch.Tensor, pals: torch.Tensor,
+                  diffs: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """``table_dither`` with the padded palettes [B, 256, 3] (channels
+    in [0, 255], as the bucket kernel needs) and the int32 diffuse flags
+    [B] as tensors, on any device."""
+    pals_dev = pals.to(words.device)
     tables = build_bucket_tables(pals_dev)
     return fs_dither_table_fused(words, tables, palette_words(pals_dev),
-                                 diffs_dev, h, w, out_u8=True)
+                                 diffs.to(words.device), h, w, out_u8=True)
+
+
+def _entries(key: tuple, fn, words: torch.Tensor, h: int, w: int,
+             batch_args: tuple = (), rep_args: tuple = ()) -> list:
+    """The transport's entries of ``fn(words, *batch_args, *rep_args)``,
+    [B, h, w] uint8 index planes: on ``words``' device, or, in a session
+    sharded over cards, each shard's planes on its card, each shard
+    through the transport there."""
+    b = words.shape[0]
+    shards = auto.shard_batch_call(key, fn, [words, *batch_args], rep_args,
+                                   fetch=False)
+    if shards is None:
+        return fetch_planes_or_runs(fn(words, *batch_args, *rep_args), b, h,
+                                    w)
+    return [e for planes in shards
+            for e in fetch_planes_or_runs(planes, planes.shape[0], h, w)]
 
 
 def frame_palette(frame: np.ndarray):
@@ -396,17 +440,31 @@ def prime_block_planes(frames: list, options,
     top = 1 if (th % 2 and not use_upper) else 0   # blank row on top
     words = x.contiguous().view(torch.int32)[..., 0]
     cells = blocks_op.quarter_cells if quarter else blocks_op.half_cells
-    # the cells read an odd height's blank row by index (the reference's
-    # odd-height empty-line shift, ref unicode-block-canvas.cc:356-365)
-    glyph, fg, bg, eq = blocks_op.cells_to_host(
-        cells(words, use_upper, None, diff=b > 1))
+
+    def window_cells(words_):
+        # the cells read an odd height's blank row by index (the
+        # reference's odd-height empty-line shift, ref
+        # unicode-block-canvas.cc:356-365)
+        return cells(words_, use_upper, None, diff=words_.shape[0] > 1)
+
+    shards = auto.shard_batch_call(("blocks", quarter, use_upper),
+                                   window_cells, [words], fetch=False)
+    if shards is None:
+        shards = [window_cells(words)]
+    # eq[0] of each shard compares with a blank frame and is not used:
+    # the canvas diffs a shard's first frame on the host
+    glyph, fg, bg, eqs = [], [], [], []
+    for part in map(blocks_op.cells_to_host, shards):
+        glyph.extend(part[0])
+        fg.extend(part[1])
+        bg.extend(part[2])
+        eqs += [None] + (list(part[3][1:]) if part[3] is not None else [])
     # One padded view per frame, shared between frame i's "padded" slot
     # and frame i+1's "prev" slot: the canvas takes the device's diff
     # mask only when ``cached_prev is self._prev_padded`` (render/
-    # ansi.py).  eq[0] compares with a blank frame and is not used.
+    # ansi.py).
     views = [DeviceFrame(words, i, ph, tw, -top) for i in range(b)]
     prevs = [None] + views[:-1]
-    eqs = [None] + (list(eq[1:]) if b > 1 else [])
     for i, frame in enumerate(frames):
         BLOCK_PLANES.put(frame, (views[i], glyph[i], fg[i], bg[i], prevs[i],
                                  eqs[i]))
@@ -447,10 +505,20 @@ def prime_sixel_planes(frames: list, options, state: dict,
     if mode == "libsixel":
         host = x.cpu().numpy()
         pals, diffs = zip(*(frame_palette(f) for f in host))
-        indices = table_dither(words, list(pals), list(diffs), padded_h, w)
+        entries = _entries(
+            ("libsixel_table",),
+            lambda words_, pals_, diffs_: _table_dither(
+                words_, pals_, diffs_, padded_h, w),
+            words, padded_h, w,
+            batch_args=(torch.from_numpy(pad_palettes(pals)),
+                        torch.tensor(diffs, dtype=torch.int32)))
         palettes, quantizer = list(pals), None
     elif mode == "cube":
-        indices = fs_dither_cube_fused(words, padded_h, w, out_u8=True)
+        entries = _entries(
+            ("sixel_cube",),
+            lambda words_: fs_dither_cube_fused(words_, padded_h, w,
+                                                out_u8=True),
+            words, padded_h, w)
         palettes, quantizer = [None] * b, None
     else:
         quantizer = state.get("quantizer")
@@ -458,10 +526,12 @@ def prime_sixel_planes(frames: list, options, state: dict,
             quantizer = median_cut_tree(x[0, ..., :3].cpu().numpy())
             state["quantizer"] = quantizer
         palette, levels, leaves = quantizer
-        indices = fs_dither_tree_fused(words, torch.from_numpy(levels),
-                                       torch.from_numpy(leaves), padded_h,
-                                       w, out_u8=True)
+        entries = _entries(
+            ("sixel_tree",),
+            lambda words_, levels_, leaves_: fs_dither_tree_fused(
+                words_, levels_, leaves_, padded_h, w, out_u8=True),
+            words, padded_h, w,
+            rep_args=(torch.from_numpy(levels), torch.from_numpy(leaves)))
         palettes = [palette] * b
-    entries = fetch_planes_or_runs(indices, b, padded_h, w)
     for i, frame in enumerate(frames):
         SIXEL_PLANES.put(frame, (entries[i], palettes[i], quantizer))

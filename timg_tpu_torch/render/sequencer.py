@@ -131,6 +131,8 @@ class BufferedWriteSequencer:
         self._queue.join()
 
     def shutdown(self) -> None:
+        if not self._thread.is_alive():     # shut down already
+            return
         self.flush()
         self._queue.put(None)
         self._thread.join()

@@ -365,7 +365,9 @@ def _resize_compose(
     frames stacked on the device ([N, target_h, target_w, 4] uint8) for
     the primers."""
     from timg_tpu_torch.ops.compose import alpha_compose_background
-    from timg_tpu_torch.ops.resize import resize_batch, resize_nearest
+    from timg_tpu_torch.ops.resize import (input_rows, resize_batch,
+                                           resize_batch_rows, resize_nearest)
+    from timg_tpu_torch.parallel import auto
 
     dev = backend.device()
     same_size = all(f.shape == raw_frames[0].shape for f in raw_frames)
@@ -376,13 +378,30 @@ def _resize_compose(
 
     results = []
     for batch in batches:
-        x = torch.from_numpy(batch).to(dev)
-        if (batch.shape[1], batch.shape[2]) != (target_h, target_w):
-            if not options.antialias:
+        needs_resize = (batch.shape[1], batch.shape[2]) != (target_h,
+                                                            target_w)
+        spatial = None
+        if needs_resize and options.antialias:
+            # Spatial sharding for very large stills: with --devices N a
+            # 4K frame splits its output rows over the cards, each with
+            # the input rows its taps read (parallel/auto.py policy;
+            # None when it does not apply)
+            in_h = batch.shape[1]
+            spatial = auto.spatial_shard_call(
+                ("still_resize", target_h, target_w),
+                lambda band, i0, o0, o1: resize_batch_rows(
+                    band, in_h, target_h, target_w, i0, o0, o1),
+                batch, target_h,
+                lambda o0, o1: input_rows(in_h, target_h, o0, o1))
+        if spatial is not None:
+            x = torch.from_numpy(spatial).to(dev)
+        else:
+            x = torch.from_numpy(batch).to(dev)
+            if needs_resize and not options.antialias:
                 # -a: nearest-neighbor sampling (the reference's GM
                 # sample() path, graphics-magick-source.cc:248-254)
                 x = resize_nearest(x, target_h, target_w)
-            else:
+            elif needs_resize:
                 x = resize_batch(x, target_h, target_w)
 
         # Lazy background query (ref framebuffer.cc:113-121).

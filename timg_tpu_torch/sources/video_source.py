@@ -39,6 +39,12 @@ window primers (prime_block_planes, prime_sixel_planes) and come back
 to the host once for the canvases.  The JAX package's host order for
 these windows (``TIMG_TPU_VIDEO_DEVICE_WINDOW=0``) writes the same
 bytes, so they ignore that setting.
+
+In a session sharded over cards (``--devices``, parallel/auto.py) the
+device windows step aside: each window's convert and resize (or sws
+kernel), or its RGBA resize, runs split over the cards and comes back to
+the host, and the RGBA window primers shard the dither or the block
+cells in turn, as the JAX package's legacy window path does.
 """
 
 from __future__ import annotations
@@ -56,6 +62,7 @@ from timg_tpu_torch.ops import backend
 from timg_tpu_torch.ops.compose import alpha_compose_background
 from timg_tpu_torch.ops.resize import resize_batch, resize_video_words
 from timg_tpu_torch.options import NOT_INITIALIZED, DisplayOptions
+from timg_tpu_torch.parallel import auto
 from timg_tpu_torch.render.plane_cache import (prime_block_planes,
                                                prime_block_video_device,
                                                prime_pixel_video_device,
@@ -182,8 +189,16 @@ class VideoSource(ImageSource):
         display size."""
         if kind == "yuv":
             return self._yuv_window(raw)
-        x = torch.from_numpy(np.stack(raw)).to(backend.device())
+        arr = np.stack(raw)
+        tw, th = self._target
+        resized = None
         if kind == "rgba":
+            resized = auto.shard_batch_call(
+                ("video_resize_batch" if self._maybe_transparent()
+                 else "video_resize_words", th, tw), self._resize, [arr])
+        x = torch.from_numpy(arr if resized is None else resized).to(
+            backend.device())
+        if kind == "rgba" and resized is None:
             x = self._resize(x)
         # "scaled": the host swscale made display-size frames already
         x = self._composed(x)
@@ -236,23 +251,33 @@ class VideoSource(ImageSource):
         us = np.stack([f[1] for f in raw])
         vs = np.stack([f[2] for f in raw])
         if getattr(opts, "sixel_batch_dither", None) is not None:
-            return prime_sixel_video_device(ys, us, vs, th, tw,
+            fast = prime_sixel_video_device(ys, us, vs, th, tw,
                                             self._full_range, opts, state,
                                             resample=resample)
-        fast = prime_block_video_device(ys, us, vs, th, tw, self._full_range,
-                                        opts, state, resample=resample)
-        if fast is None:
-            fast = prime_pixel_video_device(ys, us, vs, th, tw,
+        else:
+            fast = prime_block_video_device(ys, us, vs, th, tw,
                                             self._full_range, opts, state,
                                             resample=resample)
+            if fast is None:
+                fast = prime_pixel_video_device(ys, us, vs, th, tw,
+                                                self._full_range, opts,
+                                                state, resample=resample)
         if fast is not None:
             return fast
-        # odd-width quarter frames, and pixel sessions with
-        # TIMG_TPU_VIDEO_DEVICE_WINDOW=0: converted and resized on the
-        # device, then fetched at once (opaque: no compose)
-        words = stage_window(state, ys, us, vs, th, tw, self._full_range,
-                             th, 0, resample).cpu().numpy()
-        return list(words.view(np.uint8).reshape(words.shape + (4,)))
+        # odd-width quarter frames, pixel sessions with
+        # TIMG_TPU_VIDEO_DEVICE_WINDOW=0 and sessions sharded over cards:
+        # converted and resized on the device(s), then fetched at once
+        # (opaque: no compose) and primed as RGBA windows
+        words = auto.shard_batch_call(
+            ("video_" + resample, th, tw, self._full_range),
+            lambda y, u, v: stage_window(state, y, u, v, th, tw,
+                                         self._full_range, th, 0, resample),
+            [ys, us, vs])
+        if words is None:
+            words = stage_window(state, ys, us, vs, th, tw, self._full_range,
+                                 th, 0, resample).cpu().numpy()
+        frames = list(words.view(np.uint8).reshape(words.shape + (4,)))
+        return self._prime_and_list(frames, None)
 
     def send_frames(self, duration_ms: float, loops: int,
                     interrupt: Callable[[], bool], sink: FrameSink) -> None:
