@@ -9,8 +9,10 @@ only the port (timg_tpu_torch), never jax or the JAX package.  Phases:
 1. set-up: print the card (nvidia-smi name and power limit), build the
    CUDA kernels from timg_tpu_torch/csrc/ (one nvcc per source, in
    parallel) and, beside them, the port's native helper from
-   timg_tpu_torch/native/ (g++: the C sixel assembler, which must build,
-   and the libav video decoder, which builds only where libav exists);
+   timg_tpu_torch/native/ (one g++ each, in parallel: the C sixel
+   assembler, the host still library and the C launcher
+   timg-tpu-torch-fast, which must build, and the libav video decoder,
+   which builds only where libav exists);
    print which deflate the PNG writer loaded (libdeflate or the zlib
    fallback);
 2. kernels: a seeded window of 32 frames of 1080p 4:2:0 video, converted
@@ -133,10 +135,22 @@ only the port (timg_tpu_torch), never jax or the JAX package.  Phases:
    launcher, the first served request and the median of 5 warm ones,
    beside the launcher's own start; a TIMG_TPU_TORCH_DEVICE=cpu
    request answered D on the socket and run by the launcher on the CPU
-   with the same bytes; SIGTERM, after which the socket is gone; then
-   the serve loop in this process, the caching allocator read after
-   each of 6 requests, which must not grow after the second;
-7. devices: with two cards or more, --devices N over them; with one,
+   with the same bytes; the C launcher's warm served photo -pq (its
+   client, no python) beside the python launcher's; SIGTERM, after
+   which the socket is gone; then the serve loop in this process, the
+   kernels each served case launches (the photo's -pq also through the
+   C launcher) and the caching allocator read after each of 8
+   requests, which must not grow after the second;
+7. fastpath: with TIMG_TPU_TORCH_DEVICE=cpu, the host-only one-shot
+   still path: the photo's -pq, -ph, libsixel, -pk and -pi and the RGBA
+   PNG's -pq and -pk through the C launcher and the python launcher on
+   the pty, each stream equal to the port's CLI's on the card (the
+   stills phase's) and each taken by a fast path, never the CLI (the C
+   launcher's stage lines, the python launcher's import times); the
+   deflate library each resolved; the photo's -pq cold through each
+   launcher beside the card's cold CLI (host clock); no kernel
+   launches;
+8. devices: with two cards or more, --devices N over them; with one,
    the routing's device list cuda:0 four times: an 8-frame window in
    cube, libsixel, adaptive, quarter, kitty and cube sws through the
    sharded window against one card (each kernel of the mode launched,
@@ -146,8 +160,9 @@ only the port (timg_tpu_torch), never jax or the JAX package.  Phases:
    against the unsharded ops.  `chip_smoke.py --devices-only` runs this
    phase alone (on a host of four cards).
 
-Before each run of phases 3 to 5 and 7 every launch counter is set to
-0, and just after it every kernel of that run must have launched.  The C
+Before each run of phases 3 to 5 and 8 every launch counter is set to
+0, and just after it every kernel of that run must have launched (in
+phase 7's in-process fast-path run, none may).  The C
 assembler must have assembled every sixel frame and the C ANSI emitter
 written every block frame (the Python twins none).  The CLI itself is
 not driven where the video decoder does not build.
@@ -2200,17 +2215,18 @@ def still_inputs(d: str) -> None:
     Image.fromarray(odd).save(os.path.join(d, "odd.png"), compress_level=1)
 
 
-def cli_stream(argv: list, out_path: str) -> bytes:
-    """One run of the port's CLI in this process with its stdout on a
-    pty of STILL_WINSIZE (the stream to ``out_path``); returns the
-    stream."""
+def cli_stream(argv: list, out_path: str, main=None) -> bytes:
+    """One run of the port's CLI (or of ``main``, an entry point of the
+    same argv) in this process with its stdout on a pty of STILL_WINSIZE
+    (the stream to ``out_path``); returns the stream."""
     import fcntl
     import pty
     import struct
     import termios
     import threading
 
-    from timg_tpu_torch.cli import main
+    if main is None:
+        from timg_tpu_torch.cli import main
 
     master, slave = pty.openpty()
     fcntl.ioctl(slave, termios.TIOCSWINSZ, struct.pack("HHHH",
@@ -2596,15 +2612,28 @@ SERVE_CASES = ("photo pq", "photo libsixel", "photo pk", "hdr pq")
 SERVE_WARM = 5              # warm requests timed after the first
 SERVE_TIMED = "photo pq"    # the case of the cold, first and warm times
 SERVE_DELEGATED = "hdr pq"  # sent for another device than the server's
+# (an HDR is outside the host fast path's envelope, so with the CPU asked
+# the launcher's fast path bails and the request reaches the socket)
 DELEGATE_ENV = {"TIMG_TPU_TORCH_DEVICE": "cpu", "CUDA_VISIBLE_DEVICES": ""}
 
 
-def launcher_stream(argv: list, out_path: str, env: dict) -> bytes:
-    """One run of the launcher (``timg-tpu-torch``) in a fresh process,
-    booted as its shebang boots it (``python3 -S``, this interpreter),
-    with its stdin and stdout on a pty of STILL_WINSIZE that answers the
-    terminal queries, as ``cli_stream`` runs the CLI; returns the
-    stream."""
+PY_LAUNCHER = [sys.executable, "-S", os.path.join(REPO, "timg-tpu-torch")]
+C_LAUNCHER = [os.path.join(REPO, "timg-tpu-torch-fast")]
+
+
+def launcher_stream(argv: list, out_path: str, env: dict,
+                    cmd: list = PY_LAUNCHER) -> bytes:
+    """One run of a launcher in a fresh process -- ``timg-tpu-torch``
+    booted as its shebang boots it (``python3 -S``, this interpreter), or
+    with ``cmd`` the C launcher -- with its stdin and stdout on a pty of
+    STILL_WINSIZE that answers the terminal queries, as ``cli_stream``
+    runs the CLI; returns the stream."""
+    return launcher_run(argv, out_path, env, cmd)[0]
+
+
+def launcher_run(argv: list, out_path: str, env: dict,
+                 cmd: list = PY_LAUNCHER) -> tuple:
+    """``launcher_stream``, returning (stream, the run's stderr)."""
     import fcntl
     import pty
     import struct
@@ -2630,17 +2659,17 @@ def launcher_stream(argv: list, out_path: str, env: dict) -> bytes:
     threading.Thread(target=pump, daemon=True).start()
     try:
         proc = subprocess.run(
-            [sys.executable, "-S", os.path.join(REPO, "timg-tpu-torch"),
-             *argv, "-o", out_path], stdin=slave, stdout=slave,
+            [*cmd, *argv, "-o", out_path], stdin=slave, stdout=slave,
             stderr=subprocess.PIPE, env=env, cwd=REPO, timeout=300)
     finally:
         os.close(slave)
         os.close(master)
     if proc.returncode != 0:
-        fail(f"the launcher exited {proc.returncode} on {' '.join(argv)}:\n"
+        fail(f"{os.path.basename(cmd[-1])} exited {proc.returncode} on "
+             f"{' '.join(argv)}:\n"
              + proc.stderr.decode(errors="replace")[-2000:])
     with open(out_path, "rb") as f:
-        return f.read()
+        return f.read(), proc.stderr.decode(errors="replace")
 
 
 def pinned_kitty_ids(stream: bytes) -> bytes:
@@ -2677,7 +2706,7 @@ def served_memory(d: str, env: dict, reset_counts, read_counts) -> list:
     ready = threading.Event()
     server = threading.Thread(
         target=serve.serve,
-        args=(sock, ready.set, len(SERVE_CASES) + SERVE_WARM + 1),
+        args=(sock, ready.set, len(SERVE_CASES) + SERVE_WARM + 2),
         daemon=True)
     server.start()
     if not ready.wait(300):
@@ -2703,6 +2732,17 @@ def served_memory(d: str, env: dict, reset_counts, read_counts) -> list:
               f"without the server {direct}")
         if name == SERVE_TIMED and not served:
             fail(f"serve {name}: the served request launched no kernel")
+        if name == SERVE_TIMED:
+            # the C launcher's client: the default device reaches the
+            # card, launching what the run without the server launched
+            reset_counts()
+            launcher_stream(still_argv(name, d), out, served_env, C_LAUNCHER)
+            by_c = {k: v for k, v in read_counts().items() if v}
+            print(f"serve: {name} through the C launcher: launches served "
+                  f"{by_c}")
+            if [k for k in direct if k not in by_c]:
+                fail(f"serve {name}: the C launcher's served request "
+                     f"launched {by_c}, the run without the server {direct}")
     mib = []
     for _ in range(SERVE_WARM + 1):
         launcher_stream(still_argv(SERVE_TIMED, d), out, served_env)
@@ -2751,11 +2791,14 @@ def serve_phase(d: str, smi_line: str, reset_counts,
             with open(os.path.join(d, name + ".cpu"), "rb") as f:
                 return f.read()
 
-        def request(name, out, extra=None, pinned=False):
+        def request(name, out, extra=None, pinned=False, cmd=PY_LAUNCHER):
             case_env = dict(env, **STILL_CASES[name][2], **(extra or {}))
             t = time.perf_counter()
-            got = launcher_stream(still_argv(name, d), out, case_env)
+            got, err = launcher_run(still_argv(name, d), out, case_env, cmd)
             ms = (time.perf_counter() - t) * 1e3
+            if cmd == C_LAUNCHER and "[timing] served" not in err:
+                fail(f"serve {name}: the C launcher's request was not "
+                     f"served:\n{err[-1000:]}")
             if pinned:
                 got = pinned_kitty_ids(got)
             if got != cpu_stream(name):
@@ -2771,6 +2814,9 @@ def serve_phase(d: str, smi_line: str, reset_counts,
                 print(f"serve: {name} served, == its cpu stream, {ms:.1f} "
                       "ms (host clock, the launcher's process included)")
         warm = [request(SERVE_TIMED, out) for _ in range(SERVE_WARM)]
+        c_env = {"TIMG_TPU_FAST_TIMING": "1"}
+        c_warm = [request(SERVE_TIMED, out, c_env, cmd=C_LAUNCHER)
+                  for _ in range(SERVE_WARM)]
         starts = []
         for _ in range(3):
             t = time.perf_counter()
@@ -2793,6 +2839,14 @@ def serve_phase(d: str, smi_line: str, reset_counts,
               f"start (python -S and the serve import, no request) "
               f"{statistics.median(starts):.1f} ms, median of 3; "
               f"{smi_line}")
+        print(f"serve: {SERVE_TIMED} through the C launcher "
+              f"(timg-tpu-torch-fast, default device: its client hands "
+              f"the invocation to the server, no python in the client), "
+              f"warm served median of {SERVE_WARM} "
+              f"{statistics.median(c_warm):.1f} ms (all "
+              f"{', '.join(f'{w:.1f}' for w in c_warm)}), the python "
+              f"launcher's {statistics.median(warm):.1f} ms, each == its "
+              f"cpu stream (host clock); {smi_line}")
 
         # delegation: the socket answers D, then the launcher runs it
         conn = socket.socket(socket.AF_UNIX, socket.SOCK_STREAM)
@@ -2834,6 +2888,162 @@ def serve_phase(d: str, smi_line: str, reset_counts,
           + f"; the phase took {time.perf_counter() - t0:.1f} s")
     if any(a > mib[1][0] or r > mib[1][1] for a, r in mib[2:]):
         fail("serve: the device memory grew across the warm requests")
+
+
+# ---------------------------------------------------------------- fastpath
+# The host-only one-shot still path, taken only with the CPU asked: the C
+# launcher (timg-tpu-torch-fast) and the python launcher's fast path
+# (timg_tpu_torch/fast.py) on the stills phase's photo and RGBA PNG
+FAST_CASES = ("photo pq", "photo ph", "photo libsixel", "photo pk",
+              "photo pi", "alpha pq none", "alpha pk checker")
+FAST_TIMED = "photo pq"     # the case of the cold times
+FAST_ROUNDS = 3             # cold runs of each launcher, in turns
+JPEGLIB_H = "/usr/include/jpeglib.h"   # the C launcher's JPEG decoder
+# the CPU asked, and no server; ROUTE_ENV adds what shows each run's
+# route (the C launcher's stage lines, the import times), which the
+# timed runs leave out
+HOST_ENV = {"TIMG_TPU_TORCH_DEVICE": "cpu", "TIMG_TPU_NO_SERVE": "1"}
+ROUTE_ENV = {"TIMG_TPU_FAST_TIMING": "1", "PYTHONPROFILEIMPORTTIME": "1"}
+
+
+def pillow_libjpeg() -> str:
+    """Pillow's bundled libjpeg, which the C launcher's JPEG decoder opens
+    (TIMG_TPU_PILLOW_JPEG) to decode as PIL does; "" where there is none."""
+    import glob
+
+    import PIL
+
+    site = os.path.dirname(os.path.dirname(os.path.abspath(PIL.__file__)))
+    found = sorted(glob.glob(os.path.join(site, "pillow.libs",
+                                          "libjpeg-*.so*")))
+    return found[0] if found else ""
+
+
+def fast_route(err: str) -> str:
+    """Which path answered a launcher run, from its stderr: the C
+    launcher (its stage lines and no python), the python fast path (no
+    torch and no CLI in the import times), or the CLI (a failure here)."""
+    imported = {line.rsplit("|", 1)[-1].strip()
+                for line in err.splitlines()
+                if line.startswith("import time:")}
+    if "torch" in imported or "timg_tpu_torch.cli" in imported:
+        return "cli"
+    if imported:
+        return "python fast path"
+    return "C launcher" if "[timing] emit+rest" in err else "unknown"
+
+
+def fastpath_phase(d: str, streams: dict, smi_line: str, reset_counts,
+                   read_counts) -> None:
+    """With TIMG_TPU_TORCH_DEVICE=cpu, FAST_CASES through the C launcher
+    and the python launcher on the pty: each stream must equal the port's
+    CLI's on the card (the stills phase's, kitty ids pinned), and each run
+    must be taken by a fast path, never the CLI (the C launcher's stage
+    lines, the python launcher's import times).  FAST_TIMED once more in
+    this process through fast.try_fast_main, between the counters' reset
+    and read: the same stream, and no kernel launched.  Then, on the host
+    clock, FAST_TIMED cold through each launcher with the CPU asked (the
+    route's stage lines and import times off) beside the card's cold
+    CLI."""
+    import signal
+    import statistics
+
+    from timg_tpu_torch import fast
+    from timg_tpu_torch.native import runtime
+
+    t_phase = time.perf_counter()
+    jpeg = pillow_libjpeg()
+    timed_env = dict(os.environ, **HOST_ENV)
+    if jpeg:
+        timed_env["TIMG_TPU_PILLOW_JPEG"] = jpeg
+    env = dict(timed_env, **ROUTE_ENV)
+    lib = runtime.load_still()
+    print(f"fastpath: the still library resolved "
+          f"{lib.timg_deflate_name().decode() or 'no deflate library'}; "
+          f"the C launcher's JPEG decoder opens "
+          f"{jpeg or 'the system libjpeg.so.62, if any'}; jpeglib.h "
+          f"{'present' if os.path.exists(JPEGLIB_H) else 'absent'} "
+          "at its build")
+    out = os.path.join(d, "fast.out")
+    deflate = set()
+    for name in FAST_CASES:
+        flags, _, case_env = STILL_CASES[name]
+        for label, cmd in (("C launcher", C_LAUNCHER),
+                           ("python launcher", PY_LAUNCHER)):
+            t = time.perf_counter()
+            got, err = launcher_run(still_argv(name, d), out,
+                                    dict(env, **case_env), cmd)
+            ms = (time.perf_counter() - t) * 1e3
+            deflate.update(line.split(None, 1)[1] for line in
+                           err.splitlines() if line.startswith("[deflate]"))
+            route = fast_route(err)
+            if "-pk" in flags:
+                got = pinned_kitty_ids(got)
+            if got != streams[name]:
+                fail(f"fastpath {name}: the {label}'s stream ({len(got)} B)"
+                     f" != the card CLI's: "
+                     + first_difference(got, streams[name]))
+            if route not in ("C launcher", "python fast path") or (
+                    label == "python launcher" and route != "python fast "
+                    "path") or (label == "C launcher" and "png" in
+                                " ".join(STILL_CASES[name][1])
+                                and route != "C launcher"):
+                fail(f"fastpath {name}: the {label}'s run was taken by "
+                     f"{route}:\n{err[-1500:]}")
+            print(f"fastpath: {name} ({' '.join(flags)}) through the "
+                  f"{label}: taken by the {route}, == the card CLI's "
+                  f"stream, {ms:.1f} ms (host clock, cold process, stage "
+                  "lines and import times on)")
+    print(f"fastpath: the C launcher deflated with "
+          f"{', '.join(sorted(deflate)) or 'nothing'}")
+    handlers = {s: signal.getsignal(s) for s in (signal.SIGINT,
+                                                 signal.SIGTERM)}
+    saved = os.environ.get("TIMG_TPU_TORCH_DEVICE")
+    os.environ["TIMG_TPU_TORCH_DEVICE"] = "cpu"
+    reset_counts()
+    try:
+        got = cli_stream(still_argv(FAST_TIMED, d), out,
+                         fast.try_fast_main)
+    finally:
+        ran = {k: v for k, v in read_counts().items() if v}
+        if saved is None:
+            os.environ.pop("TIMG_TPU_TORCH_DEVICE")
+        else:
+            os.environ["TIMG_TPU_TORCH_DEVICE"] = saved
+        for s, h in handlers.items():
+            signal.signal(s, h)
+    if got != streams[FAST_TIMED]:
+        fail(f"fastpath: {FAST_TIMED} through fast.try_fast_main in this "
+             "process != the card CLI's stream: "
+             + first_difference(got, streams[FAST_TIMED]))
+    if ran:
+        fail(f"fastpath: the host path launched kernels {ran}")
+    print(f"fastpath: {FAST_TIMED} through fast.try_fast_main in this "
+          "process: == the card CLI's stream, no kernel launched")
+    host_c, host_py = [], []
+    for _ in range(FAST_ROUNDS):
+        for cmd, times in ((C_LAUNCHER, host_c), (PY_LAUNCHER, host_py)):
+            t = time.perf_counter()
+            got = launcher_run(still_argv(FAST_TIMED, d), out, timed_env,
+                               cmd)[0]
+            times.append((time.perf_counter() - t) * 1e3)
+            if got != streams[FAST_TIMED]:
+                fail("fastpath: a timed launcher run wrote another stream")
+    t = time.perf_counter()
+    card = launcher_stream(still_argv(FAST_TIMED, d), out,
+                           dict(os.environ, TIMG_TPU_NO_SERVE="1"))
+    t_card = (time.perf_counter() - t) * 1e3
+    if card != streams[FAST_TIMED]:
+        fail("fastpath: the card's cold CLI wrote another stream")
+    print(f"fastpath: {FAST_TIMED} cold, host clock, median of "
+          f"{FAST_ROUNDS}: the C launcher with the CPU asked "
+          f"{statistics.median(host_c):.1f} ms (all "
+          f"{', '.join(f'{x:.1f}' for x in host_c)}), timg-tpu-torch with "
+          f"the CPU asked {statistics.median(host_py):.1f} ms (all "
+          f"{', '.join(f'{x:.1f}' for x in host_py)}); the card's cold CLI "
+          f"(default device, no server) {t_card:.1f} ms; {smi_line}")
+    print(f"fastpath: the phase took {time.perf_counter() - t_phase:.1f} s; "
+          f"{smi_line}")
 
 
 # ---------------------------------------------------------------- devices
@@ -3065,15 +3275,26 @@ def rgba_phase(reset_counts, read_counts, launches: dict,
 
 
 def build_native():
-    """The port's native helper: the C sixel assembler must build; the
+    """The port's native helper, one g++ each in parallel: the C sixel
+    assembler, the still library and the C launcher must build; the
     libav video decoder may not (no libav on the host)."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from timg_tpu_torch.native import runtime
 
     t0 = time.perf_counter()
-    if runtime.load() is None:
-        fail("the C sixel assembler (timg_tpu_torch/native/timg_native.cc) "
-             "did not build:\n" + runtime.build_error("native"))
-    video = runtime.load_video() is not None
+    with ThreadPoolExecutor(max_workers=4) as pool:
+        jobs = {name: pool.submit(fn) for name, fn in (
+            ("native", runtime.load), ("video", runtime.load_video),
+            ("still", runtime.load_still),
+            ("launcher", runtime.build_launcher))}
+    for name, what in (("native", "the C sixel assembler "
+                        "(timg_tpu_torch/native/timg_native.cc)"),
+                       ("still", "the still library (timg_still.cc)"),
+                       ("launcher", "the C launcher (timg_fast_main.cc)")):
+        if jobs[name].result() is None:
+            fail(f"{what} did not build:\n" + runtime.build_error(name))
+    video = jobs["video"].result() is not None
     why = runtime.build_error("video").strip().splitlines()
     return time.perf_counter() - t0, video, (why[0] if why else "")
 
@@ -3161,8 +3382,9 @@ def main() -> int:
         _build.load()
         t_native, video, why = native.result()
     print(f"setup: kernels built in {time.perf_counter() - t0:.1f} s; "
-          f"native helper: C sixel assembler built ({t_native:.1f} s), "
-          f"libav video decoder {'built' if video else 'not built: ' + why}")
+          f"native helper ({t_native:.1f} s): C sixel assembler, still "
+          f"library and C launcher (timg-tpu-torch-fast) built, libav video "
+          f"decoder {'built' if video else 'not built: ' + why}")
     with open(_build.LOG_PATH) as f:
         for line in f:
             if any(k in line for k in ("registers", "Compiling entry",
@@ -3399,6 +3621,8 @@ def main() -> int:
 
     def later_slices(d, still_streams):
         serve_phase(d, smi_line, reset_counts, read_counts)
+        fastpath_phase(d, still_streams, smi_line, reset_counts,
+                       read_counts)
         devices_phase(dev, d, still_streams, reset_counts, read_counts)
 
     stills_phase(dev, reset_counts, read_counts, launches,

@@ -61,6 +61,7 @@ def test_importing_the_port_loads_no_jax():
         "import timg_tpu_torch.sources.video_source\n"
         "import timg_tpu_torch.serve, timg_tpu_torch.version\n"
         "import timg_tpu_torch.parallel.auto, timg_tpu_torch.parallel.mesh\n"
+        "import timg_tpu_torch.fast\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
         "print(','.join(bad))\n")
@@ -114,3 +115,42 @@ def test_c_assembler_copy_matches_timg_tpu(h, w, n_colors):
     assert got == jax_encode(idx, pal)
     assert sixel_render.encode_sixel_stream_py(idx, pal) == \
         jax_encode_py(idx, pal)
+
+
+def test_fast_path_loads_no_torch_numpy_or_jax():
+    """The host fast path's modules, imported under `python -S` as the
+    launcher imports them, bring in none of torch, numpy, jax or the JAX
+    package."""
+    code = (f"import sys; sys.path.insert(0, {REPO!r})\n"
+            "import timg_tpu_torch.fast\n"
+            "import timg_tpu_torch.args, timg_tpu_torch.term\n"
+            "import timg_tpu_torch.native.runtime\n"
+            "import timg_tpu_torch.render.png_core\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            f"{FORBIDDEN + ('torch', 'numpy')!r})\n"
+            "print(','.join(bad))\n")
+    proc = subprocess.run([sys.executable, "-S", "-c", code],
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == ""
+
+
+def test_c_launcher_is_the_ports_own():
+    """timg-tpu-torch-fast's sources are the port's: they include nothing
+    of the JAX package, and the binary execs the port's launcher."""
+    import re
+
+    native = os.path.join(PORT, "native")
+    for name in ("timg_fast_main.cc", "timg_still.cc", "timg_native.cc",
+                 "css3_colors.inc"):
+        with open(os.path.join(native, name)) as f:
+            text = f.read()
+        includes = re.findall(r'^\s*#\s*include\s*[<"]([^>"]+)', text,
+                              re.M)
+        assert not [i for i in includes if "timg_tpu/" in i
+                    or i in ("libdeflate.h", "zlib.h")], (name, includes)
+    with open(os.path.join(native, "timg_fast_main.cc")) as f:
+        text = f.read()
+    execs = re.findall(r'script = std::string\(self\) \+ "(/[^"]+)"', text)
+    assert execs == ["/timg-tpu-torch"]
+    assert os.path.exists(os.path.join(REPO, "timg-tpu-torch"))

@@ -15,6 +15,7 @@ import pytest
 torch = pytest.importorskip("torch")
 os.environ["TIMG_TPU_TORCH_DEVICE"] = "cpu"
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from timg_tpu.ops import resize as jresize  # noqa: E402
@@ -22,6 +23,17 @@ from timg_tpu.ops import yuv as jyuv  # noqa: E402
 from timg_tpu_torch.ops import resize as tresize  # noqa: E402
 from timg_tpu_torch.ops import sixel_kernel  # noqa: E402
 from timg_tpu_torch.ops import yuv as tyuv  # noqa: E402
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _fresh_jax_traces():
+    """JAX's trace cache is keyed by the function, so a trace made with a
+    patched planner (tests/test_ops.py patches ``plan_passes``) is reused
+    by a later call of the same shape, and the other way round; this
+    module's calls neither take nor leave one."""
+    jax.clear_caches()
+    yield
+    jax.clear_caches()
 
 
 def _planes(seed, b, h, w):

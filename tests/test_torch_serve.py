@@ -12,6 +12,7 @@ interrupt watcher stands in for signal arming.  The launcher cases run
 import os
 import subprocess
 import sys
+import textwrap
 import threading
 import time
 
@@ -439,8 +440,12 @@ def test_socket_paths_differ(monkeypatch, tmp_path):
 # ---------------------------------------------------------------------------
 
 def _env(sock, **extra):
+    """The launcher's environment: the CPU asked for, and the host fast
+    path (which takes an in-envelope still before the socket) off, so
+    each launcher case stays on the route it names; test_launcher_fast_
+    path_answers_first turns it back on."""
     env = {k: v for k, v in os.environ.items() if not k.startswith("TIMG_")}
-    env.update({"TIMG_TPU_TORCH_DEVICE": "cpu",
+    env.update({"TIMG_TPU_TORCH_DEVICE": "cpu", "TIMG_TPU_NO_FASTPATH": "1",
                 "TIMG_TPU_SERVE_SOCKET": sock, **extra})
     return env
 
@@ -499,6 +504,31 @@ def test_launcher_is_served(server_proc, tmp_path, mode):
     assert served == cold == run_ours(argv[:-1], [png])
 
 
+def test_launcher_fast_path_answers_first(server_proc, tmp_path):
+    """With the CPU asked and the fast path on, the same invocation as
+    test_launcher_is_served's pq case is answered by the host fast path
+    before the socket (the serve client, which alone connects, is never
+    imported; nor are torch and the CLI), with the served bytes."""
+    from timg_tpu_torch.utils import device_name
+
+    sock, _ = server_proc
+    png = _png(tmp_path, "l.png", seed=12)
+    argv = ["-pq", "-g40x12", "--debug-no-frame-delay", "-b", "black", png]
+    env = _env(sock)
+    del env["TIMG_TPU_NO_FASTPATH"]
+    got, err = _launch(env, argv, tmp_path / "fast.out", "-S", "-X",
+                       "importtime")
+    modules = {line.rsplit("|", 1)[-1].strip()
+               for line in err.decode().splitlines()
+               if line.startswith("import time:")}
+    assert "timg_tpu_torch.fast" in modules
+    assert not {"torch", "numpy", "timg_tpu_torch.cli",
+                "timg_tpu_torch.serve"} & modules
+    served, _ = _launch(_env(sock), argv, tmp_path / "srv.out")
+    assert got == served
+    assert device_name(env) == "cpu"
+
+
 def test_launcher_runs_delegated_request_itself(server_proc, tmp_path):
     """A request for another device is delegated; the launcher then
     runs it itself: on a card, or, without one, it fails there for want
@@ -554,6 +584,42 @@ def test_launcher_runs_as_its_shebang_says(server_proc, tmp_path):
         assert r.returncode == 0, r.stderr.decode()[-400:]
         outs.append(out.read_bytes())
     assert outs[0] == outs[1] == _cold_port(BASE + [png], tmp_path / "c")
+
+
+@pytest.fixture
+def stub_site(tmp_path):
+    """(PYTHONPATH directory, log path) of a ``sitecustomize`` that logs
+    whether torch was loaded when it ran and, at exit, by then."""
+    d = tmp_path / "site"
+    d.mkdir()
+    log = tmp_path / "site.log"
+    (d / "sitecustomize.py").write_text(textwrap.dedent(f"""
+        import atexit, sys
+        def _log(what):
+            with open({str(log)!r}, "a") as f:
+                f.write(what + " torch=" + str("torch" in sys.modules)
+                        + "\\n")
+        _log("sitecustomize")
+        atexit.register(_log, "exit")
+    """))
+    return str(d), log
+
+
+def test_cli_run_imports_sitecustomize_before_torch(stub_site, tmp_path):
+    """With the fast path off, the CLI runs in the interpreter re-executed
+    with site: the customization runs once, before torch is imported.
+    A still the fast path answers never runs it, and its bytes are the
+    CLI's."""
+    png = _png(tmp_path, "sc.png", seed=17)
+    env = _env(str(tmp_path / "absent.sock"), PYTHONPATH=stub_site[0])
+    cli, _ = _launch(env, BASE + [png], tmp_path / "c.out", "-S")
+    assert stub_site[1].read_text() == ("sitecustomize torch=False\n"
+                                        "exit torch=True\n")
+    del env["TIMG_TPU_NO_FASTPATH"]
+    stub_site[1].unlink()
+    fast, _ = _launch(env, BASE + [png], tmp_path / "f.out", "-S")
+    assert not stub_site[1].exists()
+    assert cli == fast and cli
 
 
 def test_server_stops_and_removes_socket(tmp_path):

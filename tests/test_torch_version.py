@@ -75,7 +75,7 @@ def test_version_starts_no_compiler(capsys, monkeypatch):
     rows = _rows(port_version, capsys)
     assert not started
     assert "native runtime: video decoder not built; C sixel assembler " \
-           "not built" in rows
+           "not built; still pipeline not built" in rows
     assert any(r.startswith(KERNELS_ROW) and r.endswith(
         ("stale (rebuilt at first use)", "missing (built at first use)"))
         for r in rows)

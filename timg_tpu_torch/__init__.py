@@ -25,9 +25,16 @@ device, small stills included.
 
 Layer map (entry point down to the device):
 
-  timg-tpu-torch         -- launcher: hands its invocation to a resident
+  timg-tpu-torch-fast    -- C launcher (native/timg_fast_main.cc): with
+                            the CPU asked, renders stills on the host;
+                            else its client hands the invocation to the
+                            server, or it execs timg-tpu-torch
+  timg-tpu-torch         -- launcher: with the CPU asked, the host fast
+                            path (fast.py -> native/timg_still.cc, no
+                            numpy or torch) first; then a resident
                             server when one listens (serve.try_serve,
-                            before torch loads), else runs cli.main
+                            before torch loads); else cli.main, in the
+                            interpreter re-executed with site
   serve.py               -- --serve: the resident session on the port's
                             own unix socket (timg_tpu/serve.py's protocol)
   version.py             -- --version rows (no compiler started)

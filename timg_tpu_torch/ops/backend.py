@@ -9,16 +9,16 @@ on a machine without a usable card is an error, never a silent switch.
 
 from __future__ import annotations
 
-import os
-
 import torch
+
+from timg_tpu_torch.utils import device_name
 
 ENV = "TIMG_TPU_TORCH_DEVICE"
 
 
 def device() -> torch.device:
     """The device named by TIMG_TPU_TORCH_DEVICE (default ``cuda``)."""
-    name = os.environ.get(ENV, "cuda").strip().lower() or "cuda"
+    name = device_name()
     if name not in ("cuda", "cpu"):
         raise RuntimeError(f"{ENV}={name!r}: expected 'cuda' or 'cpu'")
     if name == "cuda" and not torch.cuda.is_available():

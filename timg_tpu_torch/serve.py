@@ -25,8 +25,10 @@ not run are delegated: a TIMG_TPU_TORCH_DEVICE, CUDA_VISIBLE_DEVICES or
 CUDA_DEVICE_ORDER other than the server's (the process computes on one
 device type, on the cards CUDA showed it at start) and a nested --serve.
 
-The port's launcher (``timg-tpu-torch``) connects whenever the socket
-exists, before it imports torch (``try_serve``).  The socket is the
+The port's launchers connect whenever the socket exists, before torch
+is imported: ``timg-tpu-torch`` (``try_serve``, after its host fast path
+when the CPU is asked) and the C launcher ``timg-tpu-torch-fast`` (its
+own client, with the same checks).  The socket is the
 port's own, so neither package's client reaches the other's server:
 $XDG_RUNTIME_DIR/timg-tpu-torch.sock, else
 /tmp/timg-tpu-torch-<uid>.sock; TIMG_TPU_SERVE_SOCKET overrides the
@@ -53,23 +55,18 @@ import sys
 import threading
 from typing import List, Optional
 
+from timg_tpu_torch.utils import device_name
+
 _MAX_REQ = 1 << 20  # sanity bound on the JSON request line
-_DEVICE_ENV = "TIMG_TPU_TORCH_DEVICE"
 # What picks the process's cards: CUDA reads these once, at its first
 # call, so a request that sets them otherwise cannot be served here.
 _CARD_ENV = ("CUDA_VISIBLE_DEVICES", "CUDA_DEVICE_ORDER")
 
 
-def _device_name(env) -> str:
-    """The device type a process with ``env`` computes on (ops/backend.py
-    reads the same variable)."""
-    return env.get(_DEVICE_ENV, "cuda").strip().lower() or "cuda"
-
-
 def _identity(env) -> tuple:
     """What fixes the device a process computes on for its whole life:
     the device type and the cards CUDA was shown."""
-    return (_device_name(env),) + tuple(env.get(k) for k in _CARD_ENV)
+    return (device_name(env),) + tuple(env.get(k) for k in _CARD_ENV)
 
 
 def _ours(path: str) -> bool:

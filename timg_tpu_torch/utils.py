@@ -8,6 +8,14 @@ from __future__ import annotations
 import os
 
 
+def device_name(env=None) -> str:
+    """The device type TIMG_TPU_TORCH_DEVICE names, stripped and in lower
+    case, ``cuda`` when unset or empty (read here, without torch, by the
+    launcher, the fast path's gate, the server and ops/backend.py)."""
+    env = os.environ if env is None else env
+    return env.get("TIMG_TPU_TORCH_DEVICE", "cuda").strip().lower() or "cuda"
+
+
 def get_bool_env(name: str, default: bool = False) -> bool:
     """ref utils.cc:27-32: >0 integer, 'on' or 'yes' (case-insensitive)."""
     value = os.environ.get(name)
