@@ -344,3 +344,34 @@ def test_block_canvas_single_frame_route_matches_jax(quarter, upper, c256):
     assert outs[1] == outs[0]
     assert outs[1][2] == b""          # an unchanged frame writes nothing
     assert sum(tansi.EMITTED.values()) - sum(before.values()) == 3
+
+
+def test_block_window_spans_stage_and_fetch():
+    """Under a profiler session the block window records its staging
+    (the planes' bytes) and its one fetch of the cells (their bytes),
+    and the frames are those of a window without spans."""
+    from timg_tpu_torch import tracing
+
+    ys, us, vs = _window(63, 3, 24, 32)
+    tracing.clear()
+    off = tcache.prime_block_video_device(ys, us, vs, 12, 16, False,
+                                          _block_opts(2), {})
+    assert tracing.records() == []
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        on = tcache.prime_block_video_device(ys, us, vs, 12, 16, False,
+                                             _block_opts(2), {})
+    recs = {r.name: r for r in tracing.records()}
+    tracing.clear()
+    assert sorted(recs) == ["window.fetch", "window.stage"]
+    assert recs["window.stage"].count == ys.nbytes + us.nbytes + vs.nbytes
+    planes = [tcache.BLOCK_PLANES.pop(f) for f in on]
+    # glyph, fg and bg of each frame, and the diff masks of all three
+    # (frame 0's, against no tail, is fetched but not handed on)
+    assert recs["window.fetch"].count == sum(
+        p[k].nbytes for p in planes for k in (1, 2, 3)) + len(on) * \
+        planes[1][5].nbytes
+    assert recs["window.stage"].t1_ns <= recs["window.fetch"].t0_ns
+    for a, b in zip(off, on):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+        tcache.BLOCK_PLANES.pop(a)

@@ -2,17 +2,19 @@
 
 Same flag surface, option resolution, pacing and exit codes as the JAX
 package's CLI; the sources and the canvas are the port's, and the
-jax-only parts (compile cache, forced-host pinning, JAX profiler hook,
-wedged-device exit) are gone.  It opens every input the JAX CLI opens:
-stills and animations from each of its decoders (QOI, everything Pillow
-decodes, Radiance HDR, SVG, PDF, PostScript, OpenSlide, the
-GraphicsMagick formats, text; with ``--grid``, ``--auto-crop``, ``-a``,
-``--scroll``, ``-U``/``-W``, ``--title`` and ``--frames``) and video of
-every pixel format (with ``--resample=sws`` and
-``--resample=sws-bitexact`` too), in ``-p sixel`` with every
-``--dither`` mode (cube, libsixel, adaptive, and auto, which resolves
-to one of the latter two as the JAX CLI resolves it), in ``-p quarter``
-/ ``-p half`` and in ``-p kitty`` / ``-p iterm2``.  Decode and the PNG
+jax-only parts (compile cache, forced-host pinning, wedged-device exit)
+are gone; TIMG_TPU_PROFILE=<dir> profiles the show with torch.profiler
+and writes its Chrome trace, the program's spans included (tracing.py),
+where the JAX CLI writes a JAX profiler trace.  It opens every input the
+JAX CLI opens: stills and animations from each of its decoders (QOI,
+everything Pillow decodes, Radiance HDR, SVG, PDF, PostScript,
+OpenSlide, the GraphicsMagick formats, text; with ``--grid``,
+``--auto-crop``, ``-a``, ``--scroll``, ``-U``/``-W``, ``--title`` and
+``--frames``) and video of every pixel format (with ``--resample=sws``
+and ``--resample=sws-bitexact`` too), in ``-p sixel`` with every
+``--dither`` mode (cube, libsixel, adaptive, and auto, which resolves to
+one of the latter two as the JAX CLI resolves it), in ``-p quarter`` /
+``-p half`` and in ``-p kitty`` / ``-p iterm2``.  Decode and the PNG
 encode run on the host and everything between them on the device, small
 stills included.  ``--serve`` runs the resident session (serve.py),
 ``--devices`` shards the windows over cards (parallel/auto.py) and
@@ -30,7 +32,7 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import List, Optional
 
-from timg_tpu_torch import utils
+from timg_tpu_torch import tracing, utils
 from timg_tpu_torch.args import _BARE, _getopt_optional_args, build_arg_parser
 from timg_tpu_torch.colors import parse_color
 from timg_tpu_torch.options import (NOT_INITIALIZED, ClearScreen,
@@ -529,11 +531,12 @@ def _run(argv: List[str], held: _Held) -> int:
     )
     held.sequencer = sequencer
 
-    start_show = time.monotonic()
-    successful, any_animations = _present_images(
-        loaded, display, present, sequencer, held)
-    duration = time.monotonic() - start_show
-    sequencer.shutdown()
+    with tracing.profiled(os.environ.get("TIMG_TPU_PROFILE")):
+        start_show = time.monotonic()
+        successful, any_animations = _present_images(
+            loaded, display, present, sequencer, held)
+        duration = time.monotonic() - start_show
+        sequencer.shutdown()
 
     if cell_size_unknown_in_pixel_mode \
             and (cell_size_warning_needed or any_animations):

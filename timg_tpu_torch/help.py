@@ -321,8 +321,12 @@ ENVIRONMENT
         frames to RGBA on host via swscale like the reference.
 
     TIMG_TPU_PROFILE
-        Directory to write a JAX profiler trace of the session's
-        device work.
+        Directory to write a torch.profiler Chrome trace of the show
+        to (timg-tpu-torch.<pid>.trace.json): the host's torch calls,
+        on the card its kernels and copies, and the program's spans
+        (window.*, seq.*) with their byte and frame counts.  The host
+        still path (TIMG_TPU_TORCH_DEVICE=cpu) runs without torch and
+        writes none; TIMG_TPU_NO_FASTPATH=1 keeps it off.
 
 EXAMPLES
     timg-tpu image.jpg                   Show a JPEG.

@@ -16,6 +16,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
+from timg_tpu_torch import tracing
 from timg_tpu_torch.options import RGBA
 
 
@@ -45,14 +46,21 @@ class _BlockModel:
         bg) numpy planes, computed on the model's device."""
         from timg_tpu_torch.ops import pipeline
 
-        if not isinstance(frames, torch.Tensor):
-            frames = torch.from_numpy(np.ascontiguousarray(frames))
+        with tracing.span("lib.stage") as s:
+            if not isinstance(frames, torch.Tensor):
+                frames = torch.from_numpy(np.ascontiguousarray(frames))
+            s.count = frames.nbytes
+            frames = frames.to(self.device)
         fn = (pipeline.quarter_pipeline if self.use_quarter
               else pipeline.half_pipeline)
-        glyph, fg, bg = fn(frames.to(self.device), self.out_h, self.out_w,
+        glyph, fg, bg = fn(frames, self.out_h, self.out_w,
                            bg_color=self.bg_color,
                            use_upper_half_block=self.use_upper_half_block)
-        return glyph.cpu().numpy(), fg.cpu().numpy(), bg.cpu().numpy()
+        # the host waits here for the card's resize, compose and cells
+        with tracing.span("lib.fetch") as s:
+            planes = glyph.cpu().numpy(), fg.cpu().numpy(), bg.cpu().numpy()
+            s.count = sum(p.nbytes for p in planes)
+        return planes
 
     def render_batch(self, frames) -> List[bytes]:
         """[B, H, W, 4] -> per-frame ANSI escape payloads (no cursor
@@ -61,19 +69,22 @@ class _BlockModel:
                                                 _emit_frame_native,
                                                 _native_lib)
 
-        glyph, fg, bg = self.process_batch(frames)
-        native = _native_lib()
-        out = []
-        for i in range(len(glyph)):
-            if native is not None:
-                out.append(_emit_frame_native(
-                    native, glyph[i], fg[i], bg[i], None, 0,
-                    self.use_256_color))
-            else:
-                canvas = UnicodeBlockCanvas.__new__(UnicodeBlockCanvas)
-                canvas.use_256_color = self.use_256_color
-                out.append(canvas._emit_frame_py(
-                    glyph[i], fg[i], bg[i], None, 0))
+        with tracing.span("lib.batch", len(frames)):
+            glyph, fg, bg = self.process_batch(frames)
+            native = _native_lib()
+            out = []
+            with tracing.span("lib.emit", len(glyph)):
+                for i in range(len(glyph)):
+                    if native is not None:
+                        out.append(_emit_frame_native(
+                            native, glyph[i], fg[i], bg[i], None, 0,
+                            self.use_256_color))
+                    else:
+                        canvas = UnicodeBlockCanvas.__new__(
+                            UnicodeBlockCanvas)
+                        canvas.use_256_color = self.use_256_color
+                        out.append(canvas._emit_frame_py(
+                            glyph[i], fg[i], bg[i], None, 0))
         return out
 
 

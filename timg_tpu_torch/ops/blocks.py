@@ -46,6 +46,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from timg_tpu_torch import tracing
 from timg_tpu_torch.ops import blocks_kernel
 from timg_tpu_torch.ops.diff import window_cell_diff
 from timg_tpu_torch.ops.exact import floor_sqrt_255
@@ -291,11 +292,14 @@ def cells_to_host(cells):
     (glyph uint8, fg and bg [..., 4] uint8, eq bool or None).  On the
     card the outputs are views of one uint8 buffer (blocks_kernel.
     cell_outputs), fetched with one copy and viewed again on the host."""
-    if cells[0].is_cuda:
-        host = cells[0]._base.cpu()
-        cells = [t if t is None else host.view(t.dtype).as_strided(
-            t.shape, t.stride(), t.storage_offset()) for t in cells]
-    glyph, fg, bg, eq = (t if t is None else t.numpy() for t in cells)
+    with tracing.span("window.fetch") as s:
+        if cells[0].is_cuda:
+            host = cells[0]._base.cpu()
+            cells = [t if t is None else host.view(t.dtype).as_strided(
+                t.shape, t.stride(), t.storage_offset()) for t in cells]
+        glyph, fg, bg, eq = (t if t is None else t.numpy() for t in cells)
+        s.count = sum(a.nbytes for a in (glyph, fg, bg, eq)
+                      if a is not None)
     return (glyph, fg.view(np.uint8).reshape(fg.shape + (4,)),
             bg.view(np.uint8).reshape(bg.shape + (4,)), eq)
 

@@ -13,6 +13,7 @@ from typing import Optional, Sequence
 
 import torch
 
+from timg_tpu_torch import tracing
 from timg_tpu_torch.ops import blocks as blocks_op
 from timg_tpu_torch.ops import compose as compose_op
 from timg_tpu_torch.ops import resize as resize_op
@@ -23,12 +24,20 @@ RGBA = Optional[Sequence[int]]
 def _resized(frames: torch.Tensor, out_h: int, out_w: int, bg_color: RGBA,
              pattern_color: RGBA, pattern_w: int,
              pattern_h: int) -> torch.Tensor:
-    x = resize_op.resize_batch(frames, out_h, out_w)
-    if bg_color is not None and bg_color[3] != 0:
-        x = compose_op.alpha_compose_background(
-            x, bg_color, pattern_color or (0, 0, 0, 0),
-            pattern_w=pattern_w, pattern_h=pattern_h)
+    with tracing.span("lib.resize", frames.shape[0]):
+        x = resize_op.resize_batch(frames, out_h, out_w)
+        if bg_color is not None and bg_color[3] != 0:
+            x = compose_op.alpha_compose_background(
+                x, bg_color, pattern_color or (0, 0, 0, 0),
+                pattern_w=pattern_w, pattern_h=pattern_h)
     return x
+
+
+def _cells(blocks_fn, x: torch.Tensor, use_upper_half_block: bool):
+    with tracing.span("lib.cells") as s:
+        out = blocks_fn(x, use_upper_half_block=use_upper_half_block)
+        s.count = out[0].numel()
+    return out
 
 
 def quarter_pipeline(frames: torch.Tensor, out_h: int, out_w: int,
@@ -40,8 +49,7 @@ def quarter_pipeline(frames: torch.Tensor, out_h: int, out_w: int,
     out_w must be even."""
     x = _resized(frames, out_h, out_w, bg_color, pattern_color, pattern_w,
                  pattern_h)
-    return blocks_op.quarter_blocks(
-        x, use_upper_half_block=use_upper_half_block)
+    return _cells(blocks_op.quarter_blocks, x, use_upper_half_block)
 
 
 def half_pipeline(frames: torch.Tensor, out_h: int, out_w: int,
@@ -51,8 +59,7 @@ def half_pipeline(frames: torch.Tensor, out_h: int, out_w: int,
     """As ``quarter_pipeline`` with 1x2 cells (out_h even)."""
     x = _resized(frames, out_h, out_w, bg_color, pattern_color, pattern_w,
                  pattern_h)
-    return blocks_op.half_blocks(
-        x, use_upper_half_block=use_upper_half_block)
+    return _cells(blocks_op.half_blocks, x, use_upper_half_block)
 
 
 def resize_compose(frames: torch.Tensor, out_h: int, out_w: int,

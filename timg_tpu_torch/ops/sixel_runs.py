@@ -35,6 +35,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from timg_tpu_torch import tracing
 from timg_tpu_torch.ops import sixel_dcs, sixel_runs_kernel
 
 _BIG = 2 ** 30
@@ -170,7 +171,8 @@ _DCS_FASTER = None
 
 
 def _host(t: torch.Tensor) -> np.ndarray:
-    return t.cpu().numpy()
+    with tracing.span("window.fetch", t.nbytes):
+        return t.cpu().numpy()
 
 
 def fetch_planes_or_runs(planes_dev: torch.Tensor, n_frames: int, h: int,

@@ -61,6 +61,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from timg_tpu_torch import tracing
 from timg_tpu_torch.native import runtime as native_runtime
 from timg_tpu_torch.ops import backend
 from timg_tpu_torch.ops import blocks as blocks_op
@@ -260,9 +261,12 @@ def stage_window(state: dict, ys, us, vs, th: int, tw: int,
         stage = (key, VideoStage(th, tw, full_range, padded_h, bg_word,
                                  resample))
         state["video_stage"] = stage
-    planes = [p if isinstance(p, torch.Tensor) else
-              torch.from_numpy(np.ascontiguousarray(p)).to(dev)
-              for p in (ys, us, vs)]
+    with tracing.span("window.stage") as s:
+        planes = [p if isinstance(p, torch.Tensor) else
+                  torch.from_numpy(np.ascontiguousarray(p)).to(dev)
+                  for p in (ys, us, vs)]
+        s.count = sum(p.nbytes for p in (ys, us, vs)
+                      if not isinstance(p, torch.Tensor))
     return stage[1](*planes)
 
 
@@ -352,7 +356,9 @@ def _dither_libsixel(words: torch.Tensor, padded_h: int, tw: int):
     run on the device.  Returns (indices, per-frame palettes)."""
     b = words.shape[0]
     stride = lsq.sample_stride(padded_h * tw)
-    samples = words.reshape(b, -1)[:, ::stride].cpu().numpy()
+    with tracing.span("window.fetch") as s:
+        samples = words.reshape(b, -1)[:, ::stride].cpu().numpy()
+        s.count = samples.nbytes
     rgb = np.stack([samples & 0xFF, (samples >> 8) & 0xFF,
                     (samples >> 16) & 0xFF], axis=-1).astype(np.uint8)
     pals, diffs = [], []
@@ -415,7 +421,11 @@ def _stacked(frames: list, batch: Optional[torch.Tensor]) -> torch.Tensor:
     caller has them there already, else one upload of the host frames."""
     if batch is not None:
         return batch
-    return torch.from_numpy(np.stack(frames)).to(backend.device())
+    with tracing.span("window.stack") as s:
+        host = np.stack(frames)
+        s.count = host.nbytes
+    with tracing.span("window.stage", host.nbytes):
+        return torch.from_numpy(host).to(backend.device())
 
 
 def prime_block_planes(frames: list, options,
@@ -503,7 +513,8 @@ def prime_sixel_planes(frames: list, options, state: dict,
     words = x.contiguous().view(torch.int32)[..., 0]   # [B, padded_h, w]
     b = len(frames)
     if mode == "libsixel":
-        host = x.cpu().numpy()
+        with tracing.span("window.fetch", x.nbytes):
+            host = x.cpu().numpy()
         pals, diffs = zip(*(frame_palette(f) for f in host))
         entries = _entries(
             ("libsixel_table",),

@@ -25,6 +25,8 @@ from concurrent.futures import Future
 from queue import Queue
 from typing import Union
 
+from timg_tpu_torch import tracing
+
 _ALLOWED_SKEW_MS = 250.0  # ref buffered-write-sequencer.cc:121
 
 
@@ -66,7 +68,9 @@ class BufferedWriteSequencer:
         seq_type: SeqType,
         end_of_frame_ms: float = 0.0,
     ) -> None:
-        self._queue.put((block, seq_type, end_of_frame_ms))
+        # the producer blocks here while the queue is full
+        with tracing.span("seq.put", self._queue.qsize()):
+            self._queue.put((block, seq_type, end_of_frame_ms))
 
     def _process_queue(self) -> None:
         animation_start = 0.0
@@ -113,7 +117,8 @@ class BufferedWriteSequencer:
                 last_frame_end_ms = end_of_frame_ms
 
                 if not do_skip:
-                    _reliable_write(self._fd, block)
+                    with tracing.span("seq.write", len(block)):
+                        _reliable_write(self._fd, block)
 
                 if seq_type != SeqType.CONTROL_WRITE:
                     with self._stats_lock:

@@ -57,6 +57,7 @@ from typing import Callable, List
 import numpy as np
 import torch
 
+from timg_tpu_torch import tracing
 from timg_tpu_torch.geometry import calc_scale_to_fit
 from timg_tpu_torch.ops import backend
 from timg_tpu_torch.ops.compose import alpha_compose_background
@@ -187,22 +188,30 @@ class VideoSource(ImageSource):
         list of (y, u, v) plane triples; "rgba": [H, W, 4] uint8 frames
         at the stream's size; "scaled": [th, tw, 4] uint8 frames at the
         display size."""
-        if kind == "yuv":
-            return self._yuv_window(raw)
-        arr = np.stack(raw)
-        tw, th = self._target
-        resized = None
-        if kind == "rgba":
-            resized = auto.shard_batch_call(
-                ("video_resize_batch" if self._maybe_transparent()
-                 else "video_resize_words", th, tw), self._resize, [arr])
-        x = torch.from_numpy(arr if resized is None else resized).to(
-            backend.device())
-        if kind == "rgba" and resized is None:
-            x = self._resize(x)
-        # "scaled": the host swscale made display-size frames already
-        x = self._composed(x)
-        return self._prime_and_list(list(x.cpu().numpy()), x)
+        with tracing.span("window", len(raw)):
+            if kind == "yuv":
+                return self._yuv_window(raw)
+            with tracing.span("window.stack") as s:
+                arr = np.stack(raw)
+                s.count = arr.nbytes
+            tw, th = self._target
+            resized = None
+            if kind == "rgba":
+                resized = auto.shard_batch_call(
+                    ("video_resize_batch" if self._maybe_transparent()
+                     else "video_resize_words", th, tw), self._resize,
+                    [arr])
+            host = arr if resized is None else resized
+            with tracing.span("window.stage", host.nbytes):
+                x = torch.from_numpy(host).to(backend.device())
+            if kind == "rgba" and resized is None:
+                x = self._resize(x)
+            # "scaled": the host swscale made display-size frames already
+            x = self._composed(x)
+            with tracing.span("window.fetch") as s:
+                frames = x.cpu().numpy()
+                s.count = frames.nbytes
+            return self._prime_and_list(list(frames), x)
 
     def _resize(self, x: torch.Tensor) -> torch.Tensor:
         """[B, H, W, 4] uint8 frames on the device -> the display size."""
@@ -247,9 +256,11 @@ class VideoSource(ImageSource):
         opts = self._options
         state = self._sixel_state
         resample = "sws" if self._sws_device else "lean"
-        ys = np.stack([f[0] for f in raw])
-        us = np.stack([f[1] for f in raw])
-        vs = np.stack([f[2] for f in raw])
+        with tracing.span("window.stack") as s:
+            ys = np.stack([f[0] for f in raw])
+            us = np.stack([f[1] for f in raw])
+            vs = np.stack([f[2] for f in raw])
+            s.count = ys.nbytes + us.nbytes + vs.nbytes
         if getattr(opts, "sixel_batch_dither", None) is not None:
             fast = prime_sixel_video_device(ys, us, vs, th, tw,
                                             self._full_range, opts, state,
@@ -275,7 +286,9 @@ class VideoSource(ImageSource):
             [ys, us, vs])
         if words is None:
             words = stage_window(state, ys, us, vs, th, tw, self._full_range,
-                                 th, 0, resample).cpu().numpy()
+                                 th, 0, resample)
+            with tracing.span("window.fetch", words.nbytes):
+                words = words.cpu().numpy()
         frames = list(words.view(np.uint8).reshape(words.shape + (4,)))
         return self._prime_and_list(frames, None)
 
@@ -327,15 +340,16 @@ class VideoSource(ImageSource):
 
         def emit(frames):
             nonlocal time_ms, is_first, last_height
-            for frame in frames:
-                time_ms += frame_ms
-                dy = -last_height if last_height > 0 else 0
-                seq = (SeqType.START_OF_ANIMATION if is_first
-                       else SeqType.ANIMATION_FRAME)
-                sink(self.indentation, dy, frame, seq,
-                     min(time_ms, duration_ms))
-                last_height = frame.shape[0]
-                is_first = False
+            with tracing.span("window.emit", len(frames)):
+                for frame in frames:
+                    time_ms += frame_ms
+                    dy = -last_height if last_height > 0 else 0
+                    seq = (SeqType.START_OF_ANIMATION if is_first
+                           else SeqType.ANIMATION_FRAME)
+                    sink(self.indentation, dy, frame, seq,
+                         min(time_ms, duration_ms))
+                    last_height = frame.shape[0]
+                    is_first = False
 
         try:
             k = 0
@@ -360,7 +374,10 @@ class VideoSource(ImageSource):
                         else:
                             emit(self._process_window(batch, kind))
                     while windows and (drain or len(windows) > 1):
-                        emit(windows.popleft().result())
+                        # the main thread blocked on the window's worker
+                        with tracing.span("window.wait"):
+                            frames = windows.popleft().result()
+                        emit(frames)
 
                 while not interrupt():
                     if use_sws:
