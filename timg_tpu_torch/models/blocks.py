@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from timg_tpu_torch import tracing
+from timg_tpu_torch.ops import staging
 from timg_tpu_torch.options import RGBA
 
 
@@ -39,6 +40,7 @@ class _BlockModel:
         self.use_256_color = use_256_color
         self.device = (torch.device(device) if device is not None
                        else backend.device())
+        self._staging = staging.Ring(self.device)
 
     def process_batch(self, frames
                       ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
@@ -46,11 +48,7 @@ class _BlockModel:
         bg) numpy planes, computed on the model's device."""
         from timg_tpu_torch.ops import pipeline
 
-        with tracing.span("lib.stage") as s:
-            if not isinstance(frames, torch.Tensor):
-                frames = torch.from_numpy(np.ascontiguousarray(frames))
-            s.count = frames.nbytes
-            frames = frames.to(self.device)
+        frames = self._staging.to_device(frames)
         fn = (pipeline.quarter_pipeline if self.use_quarter
               else pipeline.half_pipeline)
         glyph, fg, bg = fn(frames, self.out_h, self.out_w,

@@ -18,9 +18,9 @@ from __future__ import annotations
 
 from typing import List, Optional
 
-import numpy as np
 import torch
 
+from timg_tpu_torch.ops import staging
 from timg_tpu_torch.options import RGBA
 
 
@@ -35,11 +35,10 @@ class _PixelModel:
         self.compress_level = compress_level
         self.device = (torch.device(device) if device is not None
                        else backend.device())
+        self._staging = staging.Ring(self.device)
 
     def _to_device(self, a) -> torch.Tensor:
-        if isinstance(a, torch.Tensor):
-            return a.to(self.device)
-        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+        return self._staging.to_device(a)
 
     def _resized(self, frames) -> torch.Tensor:
         """[B, H, W, 4] uint8 -> [B, out_h, out_w, 4] uint8 on the
