@@ -20,6 +20,7 @@ from typing import List, Optional
 
 import torch
 
+from timg_tpu_torch import tracing
 from timg_tpu_torch.ops import staging
 from timg_tpu_torch.options import RGBA
 
@@ -84,39 +85,71 @@ class SixelModel(_PixelModel):
     def render_batch(self, frames) -> List[bytes]:
         """[B, H, W, 4] uint8 frames (numpy or a tensor) -> one sixel
         payload per frame."""
-        return self._render_resized(self._resized(frames))
+        with tracing.span("lib.batch", len(frames)):
+            return self._render_resized(self._resized(frames))
 
     def render_batch_yuv(self, y, u, v,
                          full_range: bool = True) -> List[bytes]:
         """[B,H,W] y + [B,ceil(H/2),ceil(W/2)] u/v uint8 planes (e.g.
         straight from a video decoder) -> sixel streams.  Ships 2.67x
         fewer bytes to the device than RGBA input."""
-        return self._render_resized(self._resized_yuv(y, u, v, full_range))
+        with tracing.span("lib.batch", len(y)):
+            return self._render_resized(
+                self._resized_yuv(y, u, v, full_range))
 
     def _render_resized(self, x: torch.Tensor) -> List[bytes]:
+        """Resized [B, h, w, 4] frames on the device -> payloads: the
+        dither of the model's mode (``lib.dither``, pixels), the index
+        planes' fetch (``lib.fetch``, bytes) and the assembly of every
+        payload (``lib.emit``, payloads); a median-cut tree is built on
+        the host (``lib.palette``), once a stream with
+        ``adaptive_reuse``, else once a frame.  On a card ``lib.dither``
+        times the kernel's launch alone: the host waits for the kernel
+        in ``lib.fetch``, and the device trace holds its time."""
         from timg_tpu_torch.ops import sixel as sixel_op
         from timg_tpu_torch.render.sixel_render import encode_sixel_stream
 
+        b, h, w = x.shape[:3]
         if self.dither == "cube":
             palette = sixel_op.cube_palette()
-            indices = sixel_op.fs_dither_cube(x, out_u8=True).cpu().numpy()
-            return [encode_sixel_stream(idx, palette) for idx in indices]
-        if self.adaptive_reuse:
+            with tracing.span("lib.dither", b * h * w):
+                indices = sixel_op.fs_dither_cube(x, out_u8=True)
+            planes = [(idx, palette) for idx in _fetch(indices)]
+        elif self.adaptive_reuse:
             if self._quantizer is None:
-                self._quantizer = sixel_op.median_cut_tree(
-                    x[0, ..., :3].cpu().numpy())
+                self._quantizer = _tree(x[0])
             palette, levels, leaves = self._quantizer
-            indices = sixel_op.fs_dither_tree(
-                x, levels, leaves, out_u8=True).cpu().numpy()  # one launch
-            return [encode_sixel_stream(idx, palette) for idx in indices]
-        host = x[..., :3].cpu().numpy()
-        out = []
-        for i, frame in enumerate(host):
-            palette, levels, leaves = sixel_op.median_cut_tree(frame)
-            idx = sixel_op.fs_dither_tree(x[i:i + 1], levels, leaves,
-                                          out_u8=True)[0].cpu().numpy()
-            out.append(encode_sixel_stream(idx, palette))
-        return out
+            with tracing.span("lib.dither", b * h * w):
+                indices = sixel_op.fs_dither_tree(  # one launch
+                    x, levels, leaves, out_u8=True)
+            planes = [(idx, palette) for idx in _fetch(indices)]
+        else:
+            planes = []
+            for i in range(b):
+                palette, levels, leaves = _tree(x[i])
+                with tracing.span("lib.dither", h * w):
+                    idx = sixel_op.fs_dither_tree(x[i:i + 1], levels,
+                                                  leaves, out_u8=True)
+                planes.append((_fetch(idx)[0], palette))
+        with tracing.span("lib.emit", len(planes)):
+            return [encode_sixel_stream(idx, pal) for idx, pal in planes]
+
+
+def _tree(frame: torch.Tensor):
+    """The median-cut tree of one resized [h, w, 4] frame, built on the
+    host from its first three channels: the ``lib.palette`` span (count:
+    its pixels), the frame's copy to the host included."""
+    from timg_tpu_torch.ops import sixel as sixel_op
+
+    with tracing.span("lib.palette", frame.shape[0] * frame.shape[1]):
+        return sixel_op.median_cut_tree(frame[..., :3].cpu().numpy())
+
+
+def _fetch(indices: torch.Tensor):
+    """[B, h, w] uint8 index planes -> numpy, where the host waits for
+    the card's work: the ``lib.fetch`` span (count: bytes)."""
+    with tracing.span("lib.fetch", indices.numel()):
+        return indices.cpu().numpy()
 
 
 class KittyModel(_PixelModel):

@@ -66,6 +66,7 @@ def resize_compose(frames: torch.Tensor, out_h: int, out_w: int,
                    bg_color: Sequence[int],
                    pattern_color: Sequence[int]) -> torch.Tensor:
     """[B, H, W, 4] uint8 -> [B, out_h, out_w, 4] uint8, resized and
-    composed on the frames' device."""
-    x = resize_op.resize_batch(frames, out_h, out_w)
-    return compose_op.alpha_compose_background(x, bg_color, pattern_color)
+    composed on the frames' device, through ``_resized`` (the
+    ``lib.resize`` span): a background of alpha 0 composes nothing
+    there, as ``alpha_compose_background`` leaves the frames."""
+    return _resized(frames, out_h, out_w, bg_color, pattern_color, 1, 1)
