@@ -159,3 +159,148 @@ def test_resize_compose_keeps_its_bytes(out, bg):
                                       (0, 0, 0, 0))
     assert torch.equal(resize_compose(frames, *out, bg, (0, 0, 0, 0)),
                        before)
+
+
+# the batch's assemblies over the pool of host threads
+# (sixel_render.encode_sixel_streams): B of 1, 3 and two pools and one
+MODES = {"cube": dict(dither="cube"), "a tree a frame": dict(
+    dither="adaptive"), "adaptive_reuse": dict(dither="adaptive",
+                                               adaptive_reuse=True),
+         "render_batch_yuv": dict(dither="adaptive", adaptive_reuse=True)}
+BATCHES = ["1", "3", "2w+1"]
+
+
+def _batch_size(name):
+    return 2 * sixel_render._host_cpus() + 1 if name == "2w+1" else int(name)
+
+
+def _render(mode, b, seed=SEED):
+    m = models.get("sixel")(out_h=18, out_w=30, device="cpu", **MODES[mode])
+    if mode == "render_batch_yuv":
+        rng = np.random.default_rng(seed % 2**32 + b)
+        y = rng.integers(0, 256, (b, 30, 44), dtype=np.uint8)
+        u = rng.integers(0, 256, (b, 15, 22), dtype=np.uint8)
+        return m.render_batch_yuv(y, u, u[:, ::-1].copy())
+    return m.render_batch(film(b, 60, 100, seed))
+
+
+def _planes_seen(monkeypatch):
+    """The planes the model hands to encode_sixel_streams, and what it
+    returned, call by call."""
+    seen = []
+    fn = sixel_render.encode_sixel_streams
+
+    def spy(planes):
+        out = fn(planes)
+        seen.append(([(np.array(i), np.array(p)) for i, p in planes], out))
+        return out
+    monkeypatch.setattr(sixel_render, "encode_sixel_streams", spy)
+    return seen
+
+
+@pytest.mark.parametrize("batch", BATCHES)
+@pytest.mark.parametrize("mode", list(MODES))
+def test_pooled_payloads_are_the_serial_ones_in_order(mode, batch,
+                                                      monkeypatch):
+    b = _batch_size(batch)
+    seen = _planes_seen(monkeypatch)
+    before = dict(sixel_render.ASSEMBLED)
+    got = _render(mode, b)
+    assert sixel_render.ASSEMBLED["c"] == before["c"] + b
+    assert sixel_render.ASSEMBLED["python"] == before["python"]
+    [(planes, out)] = seen
+    assert out == got and len(got) == b
+    assert got == [sixel_render.encode_sixel_stream(i, p)
+                   for i, p in planes]
+    monkeypatch.setattr(sixel_render, "_host_cpus", lambda: 1)
+    assert _render(mode, b) == got
+
+
+@pytest.mark.parametrize("batch", BATCHES)
+@pytest.mark.parametrize("mode", list(MODES))
+def test_python_twin_assembles_every_payload(mode, batch, monkeypatch):
+    from timg_tpu_torch.native import runtime
+
+    b = _batch_size(batch)
+    want = _render(mode, b)
+    before = dict(sixel_render.ASSEMBLED)
+    monkeypatch.setattr(runtime, "load", lambda: None)
+    assert _render(mode, b) == want
+    assert sixel_render.ASSEMBLED["python"] == before["python"] + b
+    assert sixel_render.ASSEMBLED["c"] == before["c"]
+
+
+def test_callers_on_models_at_once_get_the_serial_bytes(monkeypatch):
+    """Four callers, each on its own model, share the pool with a short
+    switch interval: each gets the serial bytes, and ``ASSEMBLED``
+    counts every payload."""
+    import threading
+
+    b = _batch_size("2w+1")
+    modes = ["cube", "adaptive_reuse", "a tree a frame", "cube"]
+    want = [_render(mode, b, SEED + k) for k, mode in enumerate(modes)]
+    got = [None] * len(modes)
+
+    def call(k):
+        got[k] = _render(modes[k], b, SEED + k)
+
+    before = sixel_render.ASSEMBLED["c"]
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        callers = [threading.Thread(target=call, args=(k,))
+                   for k in range(len(modes))]
+        for t in callers:
+            t.start()
+        for t in callers:
+            t.join(timeout=120)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in callers)
+    assert got == want
+    assert sixel_render.ASSEMBLED["c"] == before + len(modes) * b
+
+
+def _threads_used(monkeypatch):
+    """The threads that assembled, and the most assemblies at once."""
+    import threading
+
+    used, live, lock = set(), [0, 0], threading.Lock()
+    fn = sixel_render.encode_sixel_stream
+
+    def spy(*args):
+        with lock:
+            used.add(threading.get_ident())
+            live[0] += 1
+            live[1] = max(live)
+        try:
+            return fn(*args)
+        finally:
+            with lock:
+                live[0] -= 1
+    monkeypatch.setattr(sixel_render, "encode_sixel_stream", spy)
+    return used, live
+
+
+@pytest.mark.parametrize("batch", BATCHES)
+def test_width_is_at_most_the_cpus_and_the_batch(batch, monkeypatch):
+    b = _batch_size(batch)
+    used, live = _threads_used(monkeypatch)
+    _render("cube", b)
+    width = min(sixel_render._host_cpus(), b)
+    assert 1 <= len(used) <= width and live[1] <= width
+    pool = sixel_render._pool
+    assert pool is None or pool._max_workers <= sixel_render._host_cpus()
+
+
+@pytest.mark.parametrize("mode", list(MODES))
+def test_a_batch_of_one_starts_no_thread(mode, monkeypatch):
+    import threading
+
+    monkeypatch.setattr(sixel_render, "_pool", None)
+    used, _ = _threads_used(monkeypatch)
+    threads = threading.active_count()
+    assert len(_render(mode, 1)) == 1
+    assert used == {threading.get_ident()}
+    assert sixel_render._pool is None
+    assert threading.active_count() == threads

@@ -145,3 +145,33 @@ def test_yuv_batch_opens_the_batch_span():
     assert root.count == 2
     assert {"lib.dither", "lib.fetch", "lib.emit"} <= {
         r.name for r in children}
+
+
+@pytest.mark.parametrize("b", [1, 3])
+@pytest.mark.parametrize("mode", MODES)
+def test_a_batch_opens_an_assemble_span_a_payload(mode, b):
+    """One ``lib.emit`` on the caller's thread (count: payloads), and a
+    ``lib.assemble`` a payload (count: its bytes) on the thread that
+    assembled it: over the pool, with no parent; at width 1, inside
+    ``lib.emit`` on the caller's thread."""
+    import threading
+
+    from timg_tpu_torch.render import sixel_render
+
+    with _profile():
+        payloads = _model(**mode).render_batch(_frames()[:b])
+    recs = tracing.records()
+    root, _ = _batch(recs)
+    [emit] = [r for r in recs if r.name == "lib.emit"]
+    assert emit.count == b and emit.parent_id == root.span_id
+    assert emit.thread_id == threading.get_native_id()
+    assembled = [r for r in recs if r.name == "lib.assemble"]
+    assert sorted(r.count for r in assembled) == sorted(map(len, payloads))
+    for r in assembled:
+        assert emit.t0_ns <= r.t0_ns <= r.t1_ns <= emit.t1_ns
+    if min(sixel_render._host_cpus(), b) > 1:
+        assert all(r.parent_id == 0 for r in assembled)
+        assert emit.thread_id not in {r.thread_id for r in assembled}
+    else:
+        assert [(r.parent_id, r.thread_id) for r in assembled] == [
+            (emit.span_id, emit.thread_id)] * b

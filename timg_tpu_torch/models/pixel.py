@@ -101,13 +101,14 @@ class SixelModel(_PixelModel):
         """Resized [B, h, w, 4] frames on the device -> payloads: the
         dither of the model's mode (``lib.dither``, pixels), the index
         planes' fetch (``lib.fetch``, bytes) and the assembly of every
-        payload (``lib.emit``, payloads); a median-cut tree is built on
-        the host (``lib.palette``), once a stream with
+        payload (``lib.emit``, payloads) over the host's threads
+        (``lib.assemble`` each, on its thread); a median-cut tree is
+        built on the host (``lib.palette``), once a stream with
         ``adaptive_reuse``, else once a frame.  On a card ``lib.dither``
         times the kernel's launch alone: the host waits for the kernel
         in ``lib.fetch``, and the device trace holds its time."""
         from timg_tpu_torch.ops import sixel as sixel_op
-        from timg_tpu_torch.render.sixel_render import encode_sixel_stream
+        from timg_tpu_torch.render.sixel_render import encode_sixel_streams
 
         b, h, w = x.shape[:3]
         if self.dither == "cube":
@@ -132,7 +133,7 @@ class SixelModel(_PixelModel):
                                                   leaves, out_u8=True)
                 planes.append((_fetch(idx)[0], palette))
         with tracing.span("lib.emit", len(planes)):
-            return [encode_sixel_stream(idx, pal) for idx, pal in planes]
+            return encode_sixel_streams(planes)
 
 
 def _tree(frame: torch.Tensor):

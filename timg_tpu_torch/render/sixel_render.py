@@ -25,16 +25,21 @@ compression pool (as the reference), anything else the session's
 dither on the device at B=1.  A frame may come as a plane,
 as run records (``encode_sixel_stream_runs``, the C assembler's records
 entry) or as device-emitted DCS bands (``encode_sixel_stream_dcs``, a
-splice), whichever ops/sixel_runs.py fetched.
+splice), whichever ops/sixel_runs.py fetched.  The library's sixel model
+assembles a batch's planes over a pool of host threads
+(``encode_sixel_streams``).
 """
 
 from __future__ import annotations
 
+import os
 import threading
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
+from timg_tpu_torch import tracing
 from timg_tpu_torch.ops import backend
 from timg_tpu_torch.ops.sixel_dcs import SixelDcs, splice_host
 from timg_tpu_torch.ops.sixel_runs import SixelRuns, expand_runs_np
@@ -112,6 +117,51 @@ def encode_sixel_stream(indices: np.ndarray, palette: np.ndarray) -> bytes:
             _count("c")
             return ctypes.string_at(buf, n)
     return encode_sixel_stream_py(indices, palette)
+
+
+_pool = None              # the assembly threads, built on first use
+_pool_lock = threading.Lock()
+
+
+def _host_cpus() -> int:
+    """The CPUs this process may run on."""
+    try:
+        return len(os.sched_getaffinity(0))
+    except AttributeError:    # a platform without affinity
+        return os.cpu_count() or 1
+
+
+def _assembly_pool() -> ThreadPoolExecutor:
+    global _pool
+    with _pool_lock:
+        if _pool is None:
+            _pool = ThreadPoolExecutor(max_workers=_host_cpus(),
+                                       thread_name_prefix="timg-sixel")
+        return _pool
+
+
+def _assemble(plane) -> bytes:
+    """One plane's payload, in the ``lib.assemble`` span of the thread
+    that assembles it (count: the payload's bytes).  The module's
+    ``encode_sixel_stream`` is looked up at each call."""
+    with tracing.span("lib.assemble") as s:
+        payload = encode_sixel_stream(*plane)
+        s.count = len(payload)
+    return payload
+
+
+def encode_sixel_streams(planes) -> list:
+    """[(indices, palette), ...] -> their payloads in the same order,
+    each ``encode_sixel_stream``'s bytes.  The assemblies run at once
+    over one pool of host threads for the process, as many as the CPUs
+    it may run on and no more than the planes: the C assembler drops the
+    interpreter's lock, and its output buffer and mask arena are the
+    thread's own.  At a width of 1 (one plane, or one CPU) they run on
+    the calling thread, and no thread starts."""
+    width = min(_host_cpus(), len(planes))
+    if width <= 1:
+        return [_assemble(plane) for plane in planes]
+    return list(_assembly_pool().map(_assemble, planes))
 
 
 def encode_sixel_stream_runs(runs, palette: np.ndarray) -> bytes:
